@@ -1,0 +1,83 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+Marked `cuda`; each test skips without a CUDA device (decided in the
+fixture, so every worker collects the same tests). On a machine with a card
+and no JAX (tests/conftest.py imports it, hence --noconftest):
+
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cl4wsis_tpu_torch.ops import cc, kernels, segsort, topk
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _maps(rs):
+    lo = rs.randint(0, 6, (17, 23))
+    yield np.kron(lo, np.ones((8, 8), np.int64))[:130, :181]
+    m = rs.randint(1, 4, (96, 64))
+    m[rs.rand(96, 64) < 0.5] = 0
+    yield m
+    yield np.ones((1, 300), np.int64)
+    yield -np.ones((7, 5), np.int64)
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+def test_cc_kernel_equals_plain(dev, connectivity):
+    rs = np.random.RandomState(connectivity)
+    for m in _maps(rs):
+        t = torch.from_numpy(m.astype(np.int32)).to(dev)
+        n = kernels.LAUNCHES["cc_multilabel"]
+        got = cc.connected_components_multilabel(t, connectivity)
+        assert kernels.LAUNCHES["cc_multilabel"] == n + 1
+        assert torch.equal(got, cc.cc_multilabel_plain(t, connectivity))
+    batch = torch.from_numpy(rs.randint(0, 3, (3, 40, 50)).astype(np.int32))
+    got = cc.connected_components_multilabel(batch.to(dev), connectivity)
+    assert torch.equal(got.cpu(), cc.cc_multilabel_plain(batch, connectivity))
+
+
+@pytest.mark.parametrize("B,N,k", [(20, 262144, 32), (3, 4096, 7),
+                                   (2, 4097, 64), (5, 100, 100), (1, 9000, 1)])
+def test_topk_kernel_equals_plain(dev, B, N, k):
+    rs = np.random.RandomState(N)
+    x = rs.rand(B, N).astype(np.float32)
+    x[0] = -1.0
+    x[0, rs.choice(N, min(N, 40), replace=False)] = 0.5
+    if B > 1:
+        x[1, rs.rand(N) < 0.3] = -np.inf
+        x[1, :3] = -0.0
+    t = torch.from_numpy(x).to(dev)
+    gv, gi = topk.topk_hier(t, k)
+    pv, pi = topk.topk_plain(t, k)
+    assert torch.equal(gi, pi) and torch.equal(gv, pv)
+
+
+def test_topk_kernel_rejects_what_it_cannot_take(dev):
+    x = torch.zeros(2, 10000, device=dev)
+    with pytest.raises(ValueError):
+        topk.topk_cuda(x, 4096)
+    with pytest.raises(TypeError):
+        topk.topk_cuda(x.double(), 4)
+
+
+@pytest.mark.parametrize("B,N,n_keys", [(1, 262144, 3000), (16, 262144, 40000),
+                                        (3, 1000, 7), (2, 1, 1), (1, 5000, 1)])
+def test_run_totals_kernel_equals_plain(dev, B, N, n_keys):
+    rs = np.random.RandomState(B * N)
+    keys = np.sort(rs.randint(0, n_keys, (B, N)), axis=1).astype(np.int32)
+    vals = [rs.randint(-2 ** 20, 2 ** 20, (B, N)).astype(np.int32)
+            for _ in range(3)]
+    args = [torch.from_numpy(a).to(dev) for a in [keys] + vals]
+    for g, w in zip(segsort.run_totals(*args), segsort.run_totals_plain(*args)):
+        assert torch.equal(g, w)
