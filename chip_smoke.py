@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving path and phase-2 train step on one
+NVIDIA card.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -7,15 +8,23 @@ Phases, each of which must pass (the script exits non-zero otherwise):
   1. print the card's name and power limit; build the CUDA kernels of
      cl4wsis_tpu_torch/csrc from the checkout;
   2. hold every kernel against its plain PyTorch version on the card at
-     the serving shapes (bit-equal), and time kernel, plain version and,
-     where one exists, the single PyTorch call computing the same function;
+     the serving and the training shapes (bit-equal), and time kernel,
+     plain version and, where one exists, the single PyTorch call
+     computing the same function;
   3. serve 4 requests of VOC-native sizes through Predictor on the
      full-width ResNet-101 model (classes (16, 5), random weights from a
      seed, bfloat16), counting the kernel launches of each request; then run
      get_ins_map on a painted 512x512 scene of known instances through the
      kernels and through the plain versions, which must agree exactly and
      find every instance;
-  4. print the kernels line (JSON) and, last, the ok line (JSON).
+  4. run the phase-2 label factory on a painted (16, 512, 512) batch of
+     known components, one CAM peak each, through the kernels and through
+     the plain versions: equal slots and maps, every component found;
+  5. train: 2 warm-up and 5 timed phase-2 steps of the VOC 15-5 step-1
+     model (ResNet-101, batch 16 at 512^2, bfloat16 autocast) with the old
+     model, PseudoLabeler and PeakGenerator, counting each step's kernel
+     launches; then one profiled step;
+  6. print the kernels line (JSON) and, last, the ok line (JSON).
 Without a CUDA device it exits non-zero before printing any result.
 """
 
@@ -30,14 +39,27 @@ import time
 import numpy as np
 import torch
 
+from cl4wsis_tpu_torch.data.synthetic import synthetic_batches
 from cl4wsis_tpu_torch.models import make_model
-from cl4wsis_tpu_torch.ops import cc, kernels, segsort, topk
+from cl4wsis_tpu_torch.ops import cc, kernels, labelgen, segsort, topk
 from cl4wsis_tpu_torch.ops.instance_postproc import get_ins_map
+from cl4wsis_tpu_torch.ops.peaks import peak_extract_nchw, smoothing
+from cl4wsis_tpu_torch.ops.resize import resize_bilinear
 from cl4wsis_tpu_torch.serve import Predictor
+from cl4wsis_tpu_torch.train import phase2, schedule
+from cl4wsis_tpu_torch.train.state import TrainState
+from cl4wsis_tpu_torch.wss import PeakGenerator, PseudoLabeler
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 SERVE_SIZES = ((375, 500), (500, 375), (500, 333), (512, 512))  # (H, W)
-PER_REQUEST = {"cc_multilabel": 2, "topk": 1, "run_totals": 1}
+PER_REQUEST = {"cc_multilabel": 2, "topk": 1, "run_totals": 1, "stamp": 0,
+               "cc_binary": 0}
+PER_STEP = {"cc_multilabel": 2, "topk": 2, "run_totals": 1, "stamp": 2,
+            "cc_binary": 0}
+PER_FACTORY = dict(PER_STEP, topk=1)       # the CAM peaks are outside it
+OLD, NEW = 16, 5                           # VOC 15-5, step 1
+B, S = 16, 512                             # batch, crop
+WARMUP_STEPS, TIMED_STEPS = 2, 5
 KERNEL_INFO = {
     "topk": ("cl4wsis_tpu_torch/csrc/topk.cu",
              "cl4wsis_tpu/ops/pallas_topk.py:94"),
@@ -45,6 +67,10 @@ KERNEL_INFO = {
                       "cl4wsis_tpu/ops/pallas_cc.py:297"),
     "run_totals": ("cl4wsis_tpu_torch/csrc/run_totals.cu",
                    "cl4wsis_tpu/ops/pallas_seg.py:124"),
+    "stamp": ("cl4wsis_tpu_torch/csrc/stamp.cu",
+              "cl4wsis_tpu/ops/pallas_stamp.py:90"),
+    "cc_binary": ("cl4wsis_tpu_torch/csrc/cc.cu",
+                  "cl4wsis_tpu/ops/pallas_cc.py:176"),
 }
 
 
@@ -188,28 +214,79 @@ def request_image(H, W, rs):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
+def painted_factory_batch(rs, n_comp=6, cell=128):
+    """(16, 512, 512) inputs of the label factory with known answers: in
+    every image `n_comp` rectangles of new classes in distinct grid cells,
+    each holding exactly one CAM peak, with a gaussian center and offsets
+    toward it; the rest background. Every component must be accepted."""
+    yy, xx = np.mgrid[0:S, 0:S].astype(np.float32)
+    C = OLD + NEW - 1
+    seg = np.zeros((B, S, S), np.int32)
+    center = np.zeros((B, C, S, S), np.float32)
+    offset = rs.uniform(-20, 20, (B, 2, S, S)).astype(np.float32)
+    pys = np.zeros((B, C, 25), np.int32)
+    pxs = np.zeros((B, C, 25), np.int32)
+    pvalid = np.zeros((B, C, 25), bool)
+    label = np.zeros((B, C), np.float32)
+    for b in range(B):
+        cells = rs.choice((S // cell) ** 2, n_comp, replace=False)
+        n_pk = np.zeros(C, int)
+        for c_id in cells:
+            gy, gx = divmod(int(c_id), S // cell)
+            cy = gy * cell + cell // 2 + rs.randint(-8, 9)
+            cx = gx * cell + cell // 2 + rs.randint(-8, 9)
+            ry, rx = rs.randint(10, 40, 2)
+            c = rs.randint(OLD - 1, C)
+            box = (np.abs(yy - cy) <= ry) & (np.abs(xx - cx) <= rx)
+            seg[b][box] = c + 1
+            center[b, c] = np.maximum(center[b, c], rs.uniform(0.5, 1.0) *
+                                      np.exp(-((yy - cy) ** 2 +
+                                               (xx - cx) ** 2) / 18.0))
+            offset[b, 0][box] = (cy - yy)[box]
+            offset[b, 1][box] = (cx - xx)[box]
+            pys[b, c, n_pk[c]], pxs[b, c, n_pk[c]] = cy, cx
+            pvalid[b, c, n_pk[c]] = True
+            n_pk[c] += 1
+            label[b, c] = 1.0
+    soft = np.full((B, C + 1, S, S), 0.02, np.float32)
+    onehot = (seg[:, None] == np.arange(C + 1)[None, :, None, None])
+    soft += 0.6 * onehot
+    soft /= soft.sum(1, keepdims=True)
+    soft[:, 1:] *= label[:, :, None, None]
+    return (seg, label, pys, pxs, pvalid, soft, center, offset), B * n_comp
+
+
 @contextlib.contextmanager
 def plain_versions():
-    """Route the serving path's three kernel calls to their plain PyTorch
-    versions, for the same-card comparison of the whole post-processing."""
+    """Route every kernel call of the serving path and of the train step's
+    label factory to its plain PyTorch version, for the same-card
+    comparison of the whole post-processing."""
     saved = (cc.connected_components_multilabel, topk.topk_hier,
-             segsort.run_totals1)
+             segsort.run_totals, labelgen.stamp_centers_batched)
     cc.connected_components_multilabel = cc.cc_multilabel_plain
     topk.topk_hier = topk.topk_plain
-    segsort.run_totals1 = lambda *a: tuple(
-        o[0] for o in segsort.run_totals_plain(*(t[None] for t in a)))
+    segsort.run_totals = segsort.run_totals_plain
+    labelgen.stamp_centers_batched = labelgen.stamp_centers
     try:
         yield
     finally:
         (cc.connected_components_multilabel, topk.topk_hier,
-         segsort.run_totals1) = saved
+         segsort.run_totals, labelgen.stamp_centers_batched) = saved
 
 
 # ----------------------------------------------------------------- phases
 
+def timings(kernel, plain, library=None, plain_iters=5):
+    return dict(ms=time_ms(kernel), device_ms=device_ms(kernel),
+                plain_ms=time_ms(plain, iters=plain_iters),
+                library_ms=None if library is None else time_ms(library))
+
+
 def check_kernels(dev, rs):
     """Phase 2: every kernel against its plain version; returns per-kernel
-    results for the kernels line."""
+    results for the kernels line. Each kernel is timed at the phase-2
+    step's shapes ("ms" and friends) and, for the serving kernels, at the
+    request's shapes ("serving")."""
     res = {}
 
     # multilabel CC: 512^2 blobby (20 classes), speckle, spiral, batched
@@ -224,68 +301,143 @@ def check_kernels(dev, rs):
             log(f"cc {name} 512x512 conn={conn}: max_abs_err {e}")
             err = max(err, e)
     batch = torch.from_numpy(np.stack(
-        [blobby(512, 512, 20, rs, cell=c) for c in (8, 16, 32, 64)]
+        [blobby(512, 512, 20, rs, cell=c) for c in (8, 16, 32, 64)] * 4
     ).astype(np.int32)).to(dev)
-    e = max_abs_err(cc.cc_multilabel_cuda(batch, 8),
-                    cc.cc_multilabel_plain(batch, 8))
-    log(f"cc batched (4, 512, 512) conn=8: max_abs_err {e}")
-    err = max(err, e)
+    for conn in (4, 8):
+        e = max_abs_err(cc.cc_multilabel_cuda(batch, conn),
+                        cc.cc_multilabel_plain(batch, conn))
+        log(f"cc batched (16, 512, 512) conn={conn}: max_abs_err {e}")
+        err = max(err, e)
     t = torch.from_numpy(maps["blobby"].astype(np.int32)).to(dev)
     res["cc_multilabel"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: cc.cc_multilabel_cuda(t, 8)),
-        device_ms=device_ms(lambda: cc.cc_multilabel_cuda(t, 8)),
-        plain_ms=time_ms(lambda: cc.cc_multilabel_plain(t, 8), iters=5),
-        library_ms=None, bound_ms=bound_ms(2 * t.numel() * 4),
-        shape="(512, 512) int32, connectivity 8, blobby 20-class map")
+        max_abs_err=err, bound_ms=bound_ms(2 * batch.numel() * 4),
+        shape="(16, 512, 512) int32, connectivity 8, blobby 20-class maps",
+        **timings(lambda: cc.cc_multilabel_cuda(batch, 8),
+                  lambda: cc.cc_multilabel_plain(batch, 8), plain_iters=2),
+        serving=dict(shape="(512, 512) int32, connectivity 8, blobby",
+                     bound_ms=bound_ms(2 * t.numel() * 4),
+                     **timings(lambda: cc.cc_multilabel_cuda(t, 8),
+                               lambda: cc.cc_multilabel_plain(t, 8))))
 
-    # top-k: (20, 262144), k = 32
-    x = torch.from_numpy(nms_rows(20, 512 * 512, rs)).to(dev)
-    k = 32
-    gv, gi = topk.topk_cuda(x, k)
-    pv, pi = topk.topk_plain(x, k)
-    err = max(max_abs_err(gv, pv), max_abs_err(gi, pi))
-    log(f"topk (20, 262144) k=32: max_abs_err {err}")
-    xr = torch.from_numpy(rs.rand(20, 512 * 512).astype(np.float32)).to(dev)
-    e = max(max_abs_err(topk.topk_cuda(xr, k)[1], topk.topk_plain(xr, k)[1]),
-            max_abs_err(topk.topk_cuda(xr[:, :5000].contiguous(), 7)[1],
-                        topk.topk_plain(xr[:, :5000], 7)[1]))
-    log(f"topk uniform rows and a ragged (20, 5000) k=7: max_abs_err {e}")
-    res["topk"] = dict(
-        max_abs_err=max(err, e),
-        ms=time_ms(lambda: topk.topk_cuda(x, k)),
-        device_ms=device_ms(lambda: topk.topk_cuda(x, k)),
-        plain_ms=time_ms(lambda: topk.topk_plain(x, k)),
-        library_ms=time_ms(lambda: torch.topk(x, k)),
-        bound_ms=bound_ms(x.numel() * 4 + x.shape[0] * k * 8),
-        shape="(20, 262144) float32, k 32, NMS-like rows")
-
-    # run totals: (1, 262144) and (16, 262144) sorted keys
+    # binary CC: 512^2 masks, single and batched, bool and uint8
     err = 0.0
-    for B, n_keys in ((1, 3000), (16, 40000), (1, 1)):
-        keys = np.sort(rs.randint(0, n_keys, (B, 512 * 512)), axis=1)
+    masks = [torch.from_numpy(m > 0).to(dev) for m in maps.values()]
+    mbatch = torch.from_numpy(np.stack(
+        [blobby(512, 512, 1, rs, cell=c) > 0 for c in (4, 8, 16, 32)] * 4)
+    ).to(dev)
+    for m in masks + [mbatch, mbatch.to(torch.uint8) * 5]:
+        for conn in (4, 8):
+            e = max_abs_err(cc.connected_components(m, conn),
+                            cc.cc_binary_plain(m, conn))
+            err = max(err, e)
+    log(f"cc_binary 3 masks 512x512 and (16, 512, 512) bool/uint8, conn 4 "
+        f"and 8: max_abs_err {err}")
+    m0 = masks[0]
+    res["cc_binary"] = dict(
+        max_abs_err=err, bound_ms=bound_ms(m0.numel() * (1 + 4)),
+        shape="(512, 512) bool, connectivity 8, blobby mask",
+        **timings(lambda: cc.cc_binary_cuda(m0, 8),
+                  lambda: cc.cc_binary_plain(m0, 8)))
+
+    # top-k: peaks (80, 262144) k 25 and NMS rows k 16 (training); NMS
+    # rows (20, 262144) k 32 (serving)
+    x = torch.from_numpy(nms_rows(20, 512 * 512, rs)).to(dev)
+    cam = torch.from_numpy(rs.rand(80, 512 * 512).astype(np.float32)
+                           ** 8).to(dev)
+    nms80 = torch.from_numpy(nms_rows(80, 512 * 512, rs)).to(dev)
+    err = 0.0
+    for rows, k in ((x, 32), (cam, 25), (nms80, 16),
+                    (cam[:, :5000].contiguous(), 7)):
+        gv, gi = topk.topk_cuda(rows, k)
+        pv, pi = topk.topk_plain(rows, k)
+        e = max(max_abs_err(gv, pv), max_abs_err(gi, pi))
+        log(f"topk {tuple(rows.shape)} k={k}: max_abs_err {e}")
+        err = max(err, e)
+    res["topk"] = dict(
+        max_abs_err=err,
+        bound_ms=bound_ms(cam.numel() * 4 + cam.shape[0] * 25 * 8),
+        shape="(80, 262144) float32, k 25, CAM-like rows",
+        **timings(lambda: topk.topk_cuda(cam, 25),
+                  lambda: topk.topk_plain(cam, 25),
+                  lambda: torch.topk(cam, 25)),
+        serving=dict(shape="(20, 262144) float32, k 32, NMS-like rows",
+                     bound_ms=bound_ms(x.numel() * 4 + x.shape[0] * 32 * 8),
+                     **timings(lambda: topk.topk_cuda(x, 32),
+                               lambda: topk.topk_plain(x, 32),
+                               lambda: torch.topk(x, 32))))
+
+    # run totals: (1, 262144) serving, (16, 262144) training
+    err = 0.0
+    for nb, n_keys in ((1, 3000), (16, 40000), (1, 1)):
+        keys = np.sort(rs.randint(0, n_keys, (nb, 512 * 512)), axis=1)
         args = [torch.from_numpy(keys.astype(np.int32)).to(dev)] + [
-            torch.from_numpy(rs.randint(0, 512, (B, 512 * 512))
+            torch.from_numpy(rs.randint(0, 512, (nb, 512 * 512))
                              .astype(np.int32)).to(dev) for _ in range(3)]
         got = segsort.run_totals_cuda(*args)
         want = segsort.run_totals_plain(*args)
         e = max(max_abs_err(g, w) for g, w in zip(got, want))
-        log(f"run_totals ({B}, 262144) keys<{n_keys}: max_abs_err {e}")
+        log(f"run_totals ({nb}, 262144) keys<{n_keys}: max_abs_err {e}")
         err = max(err, e)
-        if B == 1 and n_keys > 1:
+        if n_keys == 3000:
             serve_args = args
+        if nb == 16:
+            train_args = args
     res["run_totals"] = dict(
+        max_abs_err=err, bound_ms=bound_ms(8 * train_args[0].numel() * 4),
+        shape="(16, 262144) int32 x 4 in, x 4 out",
+        **timings(lambda: segsort.run_totals_cuda(*train_args),
+                  lambda: segsort.run_totals_plain(*train_args)),
+        serving=dict(shape="(1, 262144) int32 x 4 in, x 4 out",
+                     bound_ms=bound_ms(8 * serve_args[0].numel() * 4),
+                     **timings(lambda: segsort.run_totals_cuda(*serve_args),
+                               lambda: segsort.run_totals_plain(*serve_args))))
+
+    # stamp: (16, K) slots -> (16, 20, 512, 512), K 64 (pseudo) and 120
+    # (refined), sigma 6 and 30 (past the Pallas kernel's 21), slots on
+    # every border, off the plane, invalid, class ids out of range
+    err = 0.0
+    C = OLD + NEW - 1
+    for K in (64, 120):
+        args = [torch.from_numpy(a).to(dev)
+                for a in border_slots(rs, B, K, S, S, C)]
+        for sigma in (6, 30):
+            got = labelgen.stamp_centers_cuda(*args, C, sigma, (S, S))
+            e = max_abs_err(got, labelgen.stamp_centers(*args, C, sigma,
+                                                        (S, S)))
+            log(f"stamp (16, {K}) slots -> (16, 20, 512, 512) sigma {sigma}: "
+                f"max_abs_err {e}, max {float(got.max())}")
+            err = max(err, e)
+            if K == 120 and sigma == 6:
+                stamp_args = args
+    out_bytes = B * C * S * S * 4
+    res["stamp"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: segsort.run_totals_cuda(*serve_args)),
-        device_ms=device_ms(lambda: segsort.run_totals_cuda(*serve_args)),
-        plain_ms=time_ms(lambda: segsort.run_totals_plain(*serve_args)),
-        library_ms=None, bound_ms=bound_ms(8 * serve_args[0].numel() * 4),
-        shape="(1, 262144) int32 x 4 in, x 4 out")
+        bound_ms=bound_ms(out_bytes + 120 * B * 13),
+        shape="(16, 120) slots -> (16, 20, 512, 512) float32, sigma 6",
+        **timings(lambda: labelgen.stamp_centers_cuda(*stamp_args, C, 6,
+                                                      (S, S)),
+                  lambda: labelgen.stamp_centers(*stamp_args, C, 6, (S, S))))
     for name, r in res.items():
         if r["max_abs_err"] != 0.0:
             raise AssertionError(f"kernel {name} disagrees with its plain "
                                  f"version: {r['max_abs_err']}")
     return res
+
+
+def border_slots(rs, nb, K, H, W, C):
+    """Random slots plus one on every border and corner, off-plane centers,
+    invalid slots and class ids out of range (numpy)."""
+    cy = rs.uniform(0, H, (nb, K)).astype(np.float32)
+    cx = rs.uniform(0, W, (nb, K)).astype(np.float32)
+    cy[:, :8] = [0.0, H - 0.5, 0.0, H - 1, 0.2, H - 1, H / 2, H / 2]
+    cx[:, :8] = [0.0, 0.0, W - 0.5, W - 1, W / 2, W / 2, 0.7, W - 0.1]
+    cy[:, 8:12] = [-1.0, H + 0.5, 10.0, -0.001]
+    cx[:, 8:12] = [10.0, 10.0, W + 3.0, 10.0]
+    cls = rs.randint(0, C, (nb, K)).astype(np.int32)
+    cls[:, 12], cls[:, 13] = C + 5, -3
+    valid = rs.rand(nb, K) > 0.25
+    valid[:, :14] = True
+    return valid, cy, cx, cls
 
 
 def serve(dev, rs):
@@ -403,6 +555,229 @@ def painted(dev, rs):
         f"plain paths equal (score max_abs_err {score_err})")
 
 
+def painted_factory(dev, rs):
+    """Phase 4: the label factory through the kernels and through the plain
+    versions on a painted batch of known components."""
+    arrays, n_known = painted_factory_batch(rs)
+    args = [torch.from_numpy(a).to(dev) for a in arrays]
+    kw = dict(num_classes=OLD + NEW - 1, first_class=OLD - 1)
+    before = dict(kernels.LAUNCHES)
+    got = phase2.label_factory(*args, **kw)
+    torch.cuda.synchronize()
+    used = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    if used != PER_FACTORY:
+        raise AssertionError(f"label factory launches {used}, expected "
+                             f"{PER_FACTORY}")
+    with plain_versions():
+        before = dict(kernels.LAUNCHES)
+        want = phase2.label_factory(*args, **kw)
+        if kernels.LAUNCHES != before:
+            raise AssertionError("the plain label factory launched a kernel")
+
+    def leaves(out, prefix=""):
+        for k, v in out.items():
+            if isinstance(v, dict):
+                yield from leaves(v, prefix + k + ".")
+            elif isinstance(v, tuple):
+                for i, t in enumerate(v):
+                    yield f"{prefix}{k}[{i}]", t
+            else:
+                yield prefix + k, v
+
+    want_leaves = dict(leaves(want))
+    for name, t in leaves(got):
+        if not torch.equal(t, want_leaves[name]):
+            raise AssertionError(f"label factory: {name} differs between the "
+                                 f"kernel and the plain path")
+    found = int(got["n_match"].sum())
+    slots = int(got["p_slots"][0].sum())
+    refined = int(got["refined"]["stamp_valid"].sum())
+    if found != n_known or slots != n_known:
+        raise AssertionError(f"label factory accepted {found} components "
+                             f"({slots} slots) of {n_known} painted")
+    log(f"painted factory batch (16, 512, 512): {found} of {n_known} "
+        f"components accepted, {refined} refined slots, launches {used}; "
+        f"kernel and plain paths equal in all {len(want_leaves)} outputs")
+    log(f"label factory alone on the painted batch: "
+        f"{time_ms(lambda: phase2.label_factory(*args, **kw), iters=5):.3f} "
+        f"ms (CUDA events)")
+
+
+def build_training(dev):
+    """The full-width models (random weights from a seed), the optimizer of
+    bench_phase2 (Adam 5e-5, poly over 10000, groups 0/0/10/0) and two
+    synthetic batches with every new class labelled."""
+    torch.manual_seed(0)
+    model = make_model((OLD, NEW), "resnet101", 16, S)
+    model_old = make_model((OLD,), "resnet101", 16, S)
+    pl = PseudoLabeler(OLD + NEW)
+    pg = PeakGenerator(OLD + NEW - 1, OLD - 1)
+    with torch.no_grad():
+        pg.extra_conv4.bias += 0.5     # a CAM that relu does not zero out
+    for m in (model, model_old, pl, pg):
+        m.to(dev, memory_format=torch.channels_last).eval()
+    opt = schedule.make_optimizer(model, "adam", group_scale={
+        "body": 0.0, "seg": 0.0, "instance": 10.0, "pseudo": 0.0})
+    state = TrainState(model, opt, schedule.make_schedule("poly", 5e-5, 10000))
+    batches = []
+    for b in synthetic_batches(B, S, OLD + NEW - 1, seed=0, n_batches=2):
+        l1h = b["l1h"][:, 1:].copy()
+        l1h[:, OLD - 1:] = 1.0
+        batches.append({"image": torch.from_numpy(b["image"]).to(dev),
+                        "l1h": torch.from_numpy(l1h).to(dev)})
+    return model, model_old, pl, pg, state, batches
+
+
+def choose_pseudo_thresh(model, pl, pg, batches):
+    """The CPU parity test's surgery at full size: a new class and a pseudo
+    threshold that lies between the top two CAM peaks of that class in at
+    least one image of every batch (the most such images overall), and a
+    seg bias toward that class, so that those images' image-sized
+    component holds exactly one live peak."""
+    tops = []
+    for batch in batches:
+        x = batch["image"].permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            _, feats = model.forward_seg(x, interpolate=False)
+            _, cam = pg(pl(feats["body"]), label=batch["l1h"])
+        cam = resize_bilinear(smoothing(cam.float())[:, OLD - 1:], (S, S))
+        tops.append(peak_extract_nchw(cam, kernel=15, k=2)[0].cpu().numpy())
+    best = None
+    for c in range(NEW):
+        for t in ((conf[b, c, 0] + conf[b, c, 1]) / 2
+                  for conf in tops for b in range(B)):
+            hits = [int(((conf[:, c, 0] > t) & (conf[:, c, 1] < t)).sum())
+                    for conf in tops]
+            if min(hits) > 0 and (best is None or sum(hits) > best[0]):
+                best = (sum(hits), float(t), c)
+    if best is None:
+        raise AssertionError("no pseudo threshold lets the factory fire in "
+                             "every batch")
+    n, thresh, c = best
+    with torch.no_grad():
+        model.cls[1].bias[c] += 10.0
+    return thresh, (n, c + OLD - 1)
+
+
+def train(dev):
+    """Phase 5: warm-up and timed phase-2 steps, launches per step, then a
+    profiled step. Returns the launches of the warm-up and timed steps."""
+    t0 = time.perf_counter()
+    model, model_old, pl, pg, state, batches = build_training(dev)
+    thresh, pick = choose_pseudo_thresh(model, pl, pg, batches)
+    step = phase2.make_phase2_train_step(model, model_old, pl, pg, OLD,
+                                         pseudo_thresh=thresh, device="cuda",
+                                         dtype="bfloat16")
+    log(f"training set-up {time.perf_counter() - t0:.1f} s; pseudo_thresh "
+        f"{thresh:.6f}: class {pick[1]} has exactly one peak above it in "
+        f"{pick[0]} images of the 2 batches")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    # count the valid slots each stamp is given (reads wait for the step)
+    stamped = []
+    real_stamp = labelgen.stamp_centers_batched
+
+    def counting_stamp(valid, *a):
+        stamped.append(valid.sum())
+        return real_stamp(valid, *a)
+
+    labelgen.stamp_centers_batched = counting_stamp
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    times, metrics = [], []
+    try:
+        for i in range(WARMUP_STEPS + TIMED_STEPS):
+            if i == WARMUP_STEPS:
+                torch.cuda.reset_peak_memory_stats()
+            before_l = dict(kernels.LAUNCHES)
+            t = time.perf_counter()
+            m = step(state, batches[i % 2], gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            delta = {k: kernels.LAUNCHES[k] - before_l[k] for k in before_l}
+            if delta != PER_STEP:
+                raise AssertionError(f"step {i}: launches {delta}, expected "
+                                     f"{PER_STEP}")
+            metrics.append({k: float(v) for k, v in m.items()})
+    finally:
+        labelgen.stamp_centers_batched = real_stamp
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    slots = [(int(stamped[2 * i]), int(stamped[2 * i + 1]))
+             for i in range(len(times))]
+    for i, (ms, mt, sl) in enumerate(zip(times, metrics, slots)):
+        log(f"step {i} ({'warm-up' if i < WARMUP_STEPS else 'timed'}): "
+            f"{ms:.3f} ms, loss {mt['loss']:.6f} (center {mt['l_center']:.6f},"
+            f" offset {mt['l_offset']:.6f}), pseudo weight px "
+            f"{mt['pseudo_weight_px']:.1f}, truncated "
+            f"{int(mt['label_truncated'])}, valid stamp slots pseudo/refined "
+            f"{sl[0]}/{sl[1]}")
+    timed = times[WARMUP_STEPS:]
+    median = float(np.median(timed))
+    log(f"phase-2 step, batch {B} at {S}x{S}, bf16: median {median:.3f} ms "
+        f"(timed samples {[round(v, 3) for v in timed]}), "
+        f"{B / median * 1e3:.3f} img/s, peak memory {peak:.3f} GiB, "
+        f"launches over {len(times)} steps {launches}")
+
+    # checks: finite losses, the instance branch moved, the rest did not
+    if not all(np.isfinite(mt["loss"]) for mt in metrics):
+        raise AssertionError("a phase-2 loss is not finite")
+    if not all(sl[0] > 0 for sl in slots):
+        raise AssertionError("a step's pseudo stamp had no valid slot")
+    after = model.state_dict()
+    moved = [k for k in before if not torch.equal(before[k], after[k])]
+    wrong = [k for k in moved
+             if schedule.default_group_fn(k) != "instance"]
+    if wrong or not moved:
+        raise AssertionError(f"parameters moved outside the instance branch "
+                             f"({wrong[:5]}) or none moved ({len(moved)})")
+    n_inst = sum(schedule.default_group_fn(k) == "instance" for k in before)
+    log(f"training checks: losses finite, {len(moved)} of {n_inst} instance "
+        f"tensors moved, body and seg parameters and BN stats unchanged")
+    x = batches[0]["image"].permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+
+    def frozen():
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            model_old(x, interpolate=False)
+            model.forward_seg(x, interpolate=False)
+            model.forward_seg(torch.flip(x, dims=[3]), interpolate=False)
+    log(f"frozen forwards alone (old model, seg on image and flip), batch "
+        f"{B}: {time_ms(frozen, iters=3, warmup=1):.3f} ms (CUDA events)")
+    profile_step(step, state, batches[0], gen, median)
+    return launches
+
+
+def profile_step(step, state, batch, gen, median_ms):
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof)
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    top = sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)
+    log(f"profiled step: device busy {busy_ms:.3f} ms in "
+        f"{sum(e.count for e in rows)} kernels and copies, idle share "
+        f"{1 - busy_ms / median_ms:.3f} of the unprofiled median step")
+    for e in top[:20]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+            f"{e.key[:90]}")
+    # the operators that launched them: the names kernels do not show
+    from torch.autograd import DeviceType
+    ops = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU
+                  and e.self_device_time_total > 0),
+                 key=lambda e: e.self_device_time_total, reverse=True)
+    log("top operators by the device time of the kernels they launch:")
+    for e in ops[:15]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+            f"{e.key[:60]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -421,21 +796,30 @@ def main() -> int:
 
     rs = np.random.RandomState(0)
     res = check_kernels(dev, rs)
-    launches = serve(dev, rs)
+    check_launches = dict(kernels.LAUNCHES)
+    serve_launches = serve(dev, rs)
     painted(dev, rs)
+    painted_factory(dev, rs)
+    train_launches = train(dev)
 
     line = []
     for name, r in res.items():
         src, rep = KERNEL_INFO[name]
-        if launches[name] < 1:
-            raise AssertionError(f"kernel {name} was not launched by serving")
+        if name == "cc_binary":
+            path, launches = None, check_launches[name]
+        else:
+            path, launches = "phase-2 train step", train_launches[name]
+            if launches < 1 or (PER_REQUEST[name] and serve_launches[name] < 1):
+                raise AssertionError(f"kernel {name} was not launched on its "
+                                     f"path")
         line.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": launches[name],
+                     "replaces": rep, "path": path, "launches": launches,
+                     "launches_serving": serve_launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "kernel_ms": r["ms"], "device_ms": r["device_ms"],
-                     "plain_ms": r["plain_ms"],
+                     "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": "bytes",
-                     "library_ms": r["library_ms"], "shape": r["shape"]})
+                     "library_ms": r["library_ms"], "shape": r["shape"],
+                     "serving": r.get("serving")})
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,6 +20,8 @@ _STAT_FIELDS = {"mean": "running_mean", "var": "running_var"}
 # flax sub-path of a depthwise-separable conv -> its torch Sequential path
 _DWSEP = {("depthwise", "conv"): "0.0.0", ("depthwise", "bn"): "0.0.1",
           ("pointwise",): "0.1", ("pointwise_bn",): "0.2"}
+# PseudoLabeler and PeakGenerator layers keep their flax names
+_WSS_LAYERS = ("conv1", "norm1", "conv2", "norm2", "cls", "extra_conv4")
 
 
 def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
@@ -51,6 +53,8 @@ def _dwsep(path: Tuple[str, ...]) -> str:
 def _module_key(path: Tuple[str, ...]) -> str:
     """flax module path (without the leaf field) -> torch module path."""
     top, rest = path[0], path[1:]
+    if not rest and top in _WSS_LAYERS:
+        return top
     if top == "body":
         return "body." + _body_module(rest)
     if top == "seg_head":
@@ -87,7 +91,8 @@ def _module_key(path: Tuple[str, ...]) -> str:
 
 def convert_jax_variables(variables: Dict[str, Any]
                           ) -> Dict[str, torch.Tensor]:
-    """JAX ``{"params", "batch_stats"}`` tree -> the port's state dict."""
+    """JAX ``{"params", "batch_stats"}`` tree of the model, the
+    PseudoLabeler or the PeakGenerator -> its port's state dict."""
     sd: Dict[str, torch.Tensor] = {}
     for coll, fields in (("params", _PARAM_FIELDS),
                          ("batch_stats", _STAT_FIELDS)):

@@ -1,12 +1,15 @@
-// Multilabel connected components over int32 class planes: every pixel with
-// class > 0 gets the smallest flat index of its same-class component (4- or
-// 8-connected); background (class <= 0) gets H*W. Planes are batched.
+// Connected components over batched planes, in two forms that share the
+// union-find passes below: multilabel (int32 classes; every pixel with class
+// > 0 gets the smallest flat index of its same-class component, 4- or
+// 8-connected) and binary (a byte mask; every nonzero pixel gets the smallest
+// flat index of its component). Background gets H*W in both.
 //
-// Replaces cl4wsis_tpu/ops/pallas_cc.py::connected_components_multilabel_pallas,
-// which keeps a whole plane in VMEM and sweeps segmented min-scans to a
-// fixpoint under an iteration cap of max(num_iters, 4(H+W)). Here the plane
-// stays in device memory and the labels are union-find trees, in the style
-// of Playne and Hawick (2018) and Komura (2015):
+// Replaces cl4wsis_tpu/ops/pallas_cc.py::connected_components_multilabel_pallas
+// and ::connected_components_pallas, which keep a whole plane in VMEM and
+// sweep segmented min-scans to a fixpoint under an iteration cap of
+// max(num_iters, 4(H+W)). Here the plane stays in device memory and the
+// labels are union-find trees, in the style of Playne and Hawick (2018) and
+// Komura (2015):
 //   init:     L[i] = i;
 //   merge:    each foreground pixel unites with its earlier same-class
 //             neighbours (left and up; at 8-connectivity also up-left and
@@ -20,9 +23,13 @@
 // the output is exact and deterministic, and there is no iteration cap (the
 // JAX fixpoint needed one only for adversarial spirals).
 //
-// Bound on the H100: bytes. One 512 x 512 plane reads 1 MB of classes and
-// writes 1 MB of roots (about 0.63 us at 3.35 TB/s). The three passes read
-// the classes twice and the labels a few times more; find() halves paths
+// The binary form reads the mask bytes directly: no pass converts them to
+// int32 first.
+//
+// Bound on the H100: bytes. One 512 x 512 plane reads 1 MB of classes (or
+// 256 KB of mask) and writes 1 MB of roots: 0.63 us (0.39 us) at 3.35 TB/s.
+// The three passes read the classes twice and the labels a few times more;
+// find() halves paths
 // as it walks, so the dependent chains stay short even in one component
 // that covers the plane. A later change can unite within a tile in shared
 // memory first so that fewer global atomics remain.
@@ -86,37 +93,70 @@ __global__ void cc_init(int* labels, long long total, int hw) {
   if (g < total) labels[g] = (int)(g % hw);
 }
 
-__global__ void cc_merge(const int* __restrict__ cls, int* labels, long long total,
-                         int H, int W, int connectivity) {
+// What a pixel is and which neighbours it joins. Classes: int32, class > 0
+// is foreground and joins equal classes. Masks: bytes (bool or uint8),
+// read as they are: nonzero is foreground and joins any foreground.
+struct ClassRule {
+  typedef int T;
+  __device__ static bool fg(int v) { return v > 0; }
+  __device__ static bool joins(int v, int u) { return u == v; }
+};
+
+struct MaskRule {
+  typedef uint8_t T;
+  __device__ static bool fg(uint8_t v) { return v != 0; }
+  __device__ static bool joins(uint8_t, uint8_t u) { return u != 0; }
+};
+
+template <class R>
+__global__ void cc_merge(const typename R::T* __restrict__ cls, int* labels,
+                         long long total, int H, int W, int connectivity) {
   const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= total) return;
   const int hw = H * W;
   const long long plane = g / hw;
   const int i = (int)(g - plane * hw);
-  const int* c = cls + plane * hw;
+  const typename R::T* c = cls + plane * hw;
   int* l = labels + plane * hw;
-  const int v = c[i];
-  if (v <= 0) return;
+  const typename R::T v = c[i];
+  if (!R::fg(v)) return;
   const int y = i / W, x = i - (i / W) * W;
-  if (x > 0 && c[i - 1] == v) unite(l, i, i - 1);
+  if (x > 0 && R::joins(v, c[i - 1])) unite(l, i, i - 1);
   if (y > 0) {
-    if (c[i - W] == v) unite(l, i, i - W);
+    if (R::joins(v, c[i - W])) unite(l, i, i - W);
     if (connectivity == 8) {
-      if (x > 0 && c[i - W - 1] == v) unite(l, i, i - W - 1);
-      if (x < W - 1 && c[i - W + 1] == v) unite(l, i, i - W + 1);
+      if (x > 0 && R::joins(v, c[i - W - 1])) unite(l, i, i - W - 1);
+      if (x < W - 1 && R::joins(v, c[i - W + 1])) unite(l, i, i - W + 1);
     }
   }
 }
 
-__global__ void cc_compress(const int* __restrict__ cls, int* labels, long long total,
-                            int hw) {
+template <class R>
+__global__ void cc_compress(const typename R::T* __restrict__ cls, int* labels,
+                            long long total, int hw) {
   const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= total) return;
   const long long plane = g / hw;
   const int i = (int)(g - plane * hw);
   int* l = labels + plane * hw;
   // no find() ever reaches a background pixel, so overwriting it is safe
-  l[i] = cls[g] > 0 ? find_root(l, i) : hw;
+  l[i] = R::fg(cls[g]) ? find_root(l, i) : hw;
+}
+
+template <class R>
+int launch_cc(const typename R::T* cls, int* roots, int N, int H, int W,
+              int connectivity, void* stream) {
+  if (N < 1 || H < 1 || W < 1 || (long long)H * W >= 0x7FFFFFFFll ||
+      (connectivity != 4 && connectivity != 8))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int hw = H * W;
+  const long long total = (long long)N * hw;
+  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
+  cc_init<<<blocks, kThreads, 0, st>>>(roots, total, hw);
+  cc_merge<R><<<blocks, kThreads, 0, st>>>(cls, roots, total, H, W, connectivity);
+  cc_compress<R><<<blocks, kThreads, 0, st>>>(cls, roots, total, hw);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -132,15 +172,12 @@ extern "C" int cl4_set_device(int device) { return (int)cudaSetDevice(device); }
 // cls, roots: (N, H, W) int32, contiguous. connectivity: 4 or 8.
 extern "C" int cl4_cc_multilabel(const int* cls, int* roots, int N, int H, int W,
                                  int connectivity, void* stream) {
-  if (N < 1 || H < 1 || W < 1 || (long long)H * W >= 0x7FFFFFFFll ||
-      (connectivity != 4 && connectivity != 8))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int hw = H * W;
-  const long long total = (long long)N * hw;
-  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
-  cc_init<<<blocks, kThreads, 0, st>>>(roots, total, hw);
-  cc_merge<<<blocks, kThreads, 0, st>>>(cls, roots, total, H, W, connectivity);
-  cc_compress<<<blocks, kThreads, 0, st>>>(cls, roots, total, hw);
-  return (int)cudaGetLastError();
+  return launch_cc<ClassRule>(cls, roots, N, H, W, connectivity, stream);
+}
+
+// mask: (N, H, W) bytes (a bool or uint8 tensor), contiguous; roots: (N, H, W)
+// int32. Replaces cl4wsis_tpu/ops/pallas_cc.py::connected_components_pallas.
+extern "C" int cl4_cc_binary(const uint8_t* mask, int* roots, int N, int H, int W,
+                             int connectivity, void* stream) {
+  return launch_cc<MaskRule>(mask, roots, N, H, W, connectivity, stream);
 }

@@ -9,7 +9,7 @@
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -31,7 +31,7 @@ _RESNET_STRUCTURES = {
 
 
 class CL4WSISModel(nn.Module):
-    """Incremental instance segmentation model, eval forward.
+    """Incremental instance segmentation model.
 
     classes: per-step class counts, e.g. (16, 5) for VOC 15-5 step 1 (step
     0 includes background). pooling_size: eval-time ASPP window =
@@ -76,12 +76,37 @@ class CL4WSISModel(nn.Module):
         features = self.body(x)
         pred = {"seg": self.cls(self.head(features["res5"]))}
         if self.has_instance:
-            dec = self.decoder.instance_decoder(features)
-            pred.update(self.instance_head(dec))
+            pred.update(self.forward_instance(features))
+        return _upsample(pred, x.shape[2:]) if interpolate else pred
+
+    def forward_features(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The backbone alone: dict(res1..res5)."""
+        return self.body(x)
+
+    def forward_instance(self, features: Dict[str, torch.Tensor],
+                         generator: Optional[torch.Generator] = None
+                         ) -> Dict[str, torch.Tensor]:
+        """Instance decoder and head on given backbone features; in train
+        mode the decoder's dropout draws from `generator`."""
+        dec = self.decoder.instance_decoder(features, generator)
+        return self.instance_head(dec)
+
+    def forward_seg(self, x: torch.Tensor, interpolate: bool = True
+                    ) -> Tuple[Dict[str, torch.Tensor],
+                               Dict[str, torch.Tensor]]:
+        """The semantic branch only: ({"seg"}, {"body": res5,
+        "features": all backbone features})."""
+        features = self.body(x)
+        pred = {"seg": self.cls(self.head(features["res5"]))}
         if interpolate:
-            pred = {k: resize_bilinear(v, x.shape[2:], align_corners=True)
-                    for k, v in pred.items()}
-        return pred
+            pred = _upsample(pred, x.shape[2:])
+        return pred, {"body": features["res5"], "features": features}
+
+
+def _upsample(pred: Dict[str, torch.Tensor], size) -> Dict[str, torch.Tensor]:
+    # final predictions upsample with align_corners=True, as upstream
+    return {k: resize_bilinear(v, size, align_corners=True)
+            for k, v in pred.items()}
 
 
 def make_model(classes: Sequence[int], backbone: str = "resnet101",

@@ -5,12 +5,13 @@ Module names give the upstream keys (``modules/panoptic_deeplab.py`` of the
 upstream code): ``aspp.convs.{0-3}.{0,1}``, ``aspp.convs.4.aspp_pooling.1``,
 ``aspp.project.{0,1}``, ``project.{i}.{0,1}``, ``fuse.{i}.0.0.{0,1}`` /
 ``.0.1`` / ``.0.2``, and ``classifier.{center,offset}.{fuse,cls}``.
-Norms here are BN + ReLU.
+Norms here are BN + ReLU. In train mode the ASPP projection's dropout draws
+its mask from the ``torch.Generator`` the caller passes.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -50,9 +51,27 @@ class _ASPPPooling(nn.Module):
         return self.aspp_pooling(x).expand(-1, -1, *x.shape[2:])
 
 
+class Dropout(nn.Module):
+    """Dropout as flax computes it: keep with probability 1 - p, kept values
+    divided by 1 - p; the mask comes from `generator` (torch's default one
+    if None). A no-op at eval."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), 0.0)
+
+
 class ASPP(nn.Module):
-    """Plain-BN ASPP: 1x1 + three atrous 3x3 + image pooling, projected.
-    The projection's dropout is a no-op at eval."""
+    """Plain-BN ASPP: 1x1 + three atrous 3x3 + image pooling, projected,
+    then dropout 0.5."""
 
     def __init__(self, cin: int, out_channels: int = 256,
                  atrous_rates: Sequence[int] = (3, 6, 9)):
@@ -64,11 +83,13 @@ class ASPP(nn.Module):
         self.project = nn.Sequential(
             nn.Conv2d(out_channels * (len(atrous_rates) + 2), out_channels,
                       1, bias=False),
-            ABN(out_channels, activation="relu"),
-            nn.Dropout(0.5))
+            ABN(out_channels, activation="relu"))
+        self.project_drop = Dropout(0.5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.project(torch.cat([m(x) for m in self.convs], dim=1))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        y = self.project(torch.cat([m(x) for m in self.convs], dim=1))
+        return self.project_drop(y, generator)
 
 
 class PanopticDecoder(nn.Module):
@@ -89,8 +110,9 @@ class PanopticDecoder(nn.Module):
                 depthwise_separable_conv(cin + proj, decoder_channels)))
             cin = decoder_channels
 
-    def forward(self, features: Dict[str, torch.Tensor]) -> torch.Tensor:
-        x = self.aspp(features["res5"])
+    def forward(self, features: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.aspp(features["res5"], generator)
         for i, key in enumerate(("res4", "res3", "res2")):
             low = self.project[i](features[key])
             x = resize_bilinear(x, low.shape[2:], align_corners=True)

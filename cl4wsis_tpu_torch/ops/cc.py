@@ -1,14 +1,16 @@
-"""Multilabel connected components (counterpart of
-``cl4wsis_tpu/ops/cc.py::connected_components_multilabel``).
+"""Connected components (counterparts of ``connected_components_multilabel``
+and ``connected_components`` in ``cl4wsis_tpu/ops/cc.py``).
 
-Every pixel with class > 0 gets the smallest flat index of its same-class
-component; background (class <= 0) gets H*W. Pixels connect only to equal
-classes, so one pass labels every class at once.
+Multilabel: every pixel with class > 0 gets the smallest flat index of its
+same-class component; background (class <= 0) gets H*W. Pixels connect only
+to equal classes, so one pass labels every class at once. Binary: every
+nonzero pixel of a mask gets the smallest flat index of its component.
 
-On a CUDA tensor :func:`connected_components_multilabel` launches the
-union-find kernel of ``csrc/cc.cu``; on a CPU tensor it runs
-:func:`cc_multilabel_plain`, label propagation to a fixpoint. Neither has an
-iteration cap: both stop only when the labels are final.
+On a CUDA tensor :func:`connected_components_multilabel` and
+:func:`connected_components` launch the union-find kernels of
+``csrc/cc.cu``; on a CPU tensor they run :func:`cc_multilabel_plain`, label
+propagation to a fixpoint. Neither has an iteration cap: both stop only when
+the labels are final.
 """
 
 from __future__ import annotations
@@ -97,3 +99,39 @@ def connected_components_multilabel(cls_map: torch.Tensor,
         return cc_multilabel_plain(cls_map, connectivity)
     return cc_multilabel_cuda(cls_map.to(torch.int32).contiguous(),
                               connectivity)
+
+
+def cc_binary_plain(mask: torch.Tensor, connectivity: int = 8) -> torch.Tensor:
+    """The fixpoint of :func:`cc_multilabel_plain` over the one class
+    `mask != 0`. (H, W) or (N, H, W) -> int32 roots."""
+    return cc_multilabel_plain((mask != 0).to(torch.int32), connectivity)
+
+
+def cc_binary_cuda(mask: torch.Tensor, connectivity: int = 8) -> torch.Tensor:
+    """(H, W) or (N, H, W) bool or uint8 on the card -> int32 roots
+    (csrc/cc.cu); the kernel reads the mask bytes as they are."""
+    if connectivity not in (4, 8):
+        raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
+    if mask.dim() not in (2, 3) or mask.numel() == 0:
+        raise ValueError(f"cc: expected a non-empty (H, W) or (N, H, W) "
+                         f"mask, got {tuple(mask.shape)}")
+    if mask.dtype == torch.bool:
+        mask = mask.view(torch.uint8)
+    kernels.require_cuda(mask, torch.uint8, mask.dim(), "cc_binary")
+    H, W = mask.shape[-2:]
+    roots = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
+    err = kernels.lib().cl4_cc_binary(
+        kernels.ptr(mask), kernels.ptr(roots), mask.numel() // (H * W), H, W,
+        connectivity, kernels.stream_of(mask))
+    kernels.check(err, "cc_binary")
+    return roots
+
+
+def connected_components(mask: torch.Tensor,
+                         connectivity: int = 8) -> torch.Tensor:
+    """Label the nonzero pixels of a mask; see the module doc."""
+    if not mask.is_cuda:
+        return cc_binary_plain(mask, connectivity)
+    if mask.dtype not in (torch.bool, torch.uint8):
+        mask = mask != 0
+    return cc_binary_cuda(mask.contiguous(), connectivity)

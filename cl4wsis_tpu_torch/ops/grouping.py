@@ -1,5 +1,6 @@
-"""Nearest-center pixel assignment over class banks (counterpart of
-``cl4wsis_tpu/ops/grouping.py::assign_pixels_classbanks``)."""
+"""Nearest-center pixel assignment (counterparts of
+``assign_pixels_classbanks`` and ``assign_pixels_lanes`` in
+``cl4wsis_tpu/ops/grouping.py``)."""
 
 from __future__ import annotations
 
@@ -50,3 +51,32 @@ def assign_pixels_classbanks(ctr_y: torch.Tensor, ctr_x: torch.Tensor,
     has = torch.isfinite(dmin)
     gid = torch.where(k < mc, pc * mc + k, C * mc + pc * mcl + (k - mc))
     return torch.where(has, gid, S).to(torch.int32).reshape(H, W)
+
+
+def assign_pixels_lanes(ctr_y: torch.Tensor, ctr_x: torch.Tensor,
+                        ctr_valid: torch.Tensor, ctr_root: torch.Tensor,
+                        offsets: torch.Tensor, pixel_root: torch.Tensor
+                        ) -> torch.Tensor:
+    """Each pixel goes to the nearest valid center, over all S slots, that
+    shares its component root; ties go to the lowest slot, and a pixel with
+    no such center gets S. Batched: slots (B, S), offsets (B, 2, H, W)
+    (y, x), pixel_root (B, H, W) -> (B, H, W) int32.
+
+    As in the JAX function every pixel measures all S slots, here as one
+    (B, H*W, S) distance plane; torch.min returns the first minimum, the
+    lowest slot."""
+    B, S = ctr_y.shape
+    H, W = pixel_root.shape[-2:]
+    dev = offsets.device
+    ys = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
+    xs = torch.arange(W, dtype=torch.float32, device=dev)[None, :]
+    loc_y = (ys + offsets[:, 0]).reshape(B, -1, 1)
+    loc_x = (xs + offsets[:, 1]).reshape(B, -1, 1)
+    # in place: at the training shapes each (B, H*W, S) plane is 2 GB
+    d = torch.square_(loc_y - ctr_y.float()[:, None, :])
+    d += torch.square_(loc_x - ctr_x.float()[:, None, :])
+    ok = ctr_valid[:, None, :] & (pixel_root.reshape(B, -1, 1) ==
+                                  ctr_root[:, None, :])
+    dmin, best = torch.min(d.masked_fill_(~ok, torch.inf), dim=2)
+    has = torch.isfinite(dmin)
+    return torch.where(has, best, S).to(torch.int32).reshape(B, H, W)

@@ -42,15 +42,19 @@ def get_ins_map(seg_prob: torch.Tensor, center_map: torch.Tensor,
     n_slots = C * (max_ctr + max_cluster)
     seg_map = torch.argmax(seg_prob, dim=-1).to(torch.int32)
     roots = cc.connected_components_multilabel(seg_map, connectivity=8)
+    # the slot search is batched and NCHW: one image here
     slots, ch_spiked, truncated = _global_center_slots(
-        seg_map, roots, center_map, offset_map, val_thresh, val_kernel, beta,
+        seg_map[None], roots[None], center_map.permute(2, 0, 1)[None],
+        offset_map.permute(2, 0, 1)[None], val_thresh, val_kernel, beta,
         max_ctr, max_cluster, C)
+    slots = {k: v[0] for k, v in slots.items()}
     assign = assign_pixels_classbanks(
         slots["ys"], slots["xs"], slots["valid"], slots["root"], offset_map,
         roots, torch.clamp(seg_map - 1, min=0), num_classes=C,
         max_ctr=max_ctr, max_cluster=max_cluster)
     npix, seg_score, vmax, _, _ = _slot_stats_sorted(
-        assign, seg_map, ch_spiked, seg_prob[..., 1:], n_slots)
+        assign, seg_map, ch_spiked[0], seg_prob[..., 1:].permute(2, 0, 1),
+        n_slots)
 
     center_score = vmax[:n_slots]
     seg_score = seg_score[:n_slots]
@@ -60,4 +64,4 @@ def get_ins_map(seg_prob: torch.Tensor, center_map: torch.Tensor,
     score = center_score * seg_score
     ins_map = torch.where(assign < n_slots, assign, -1).to(torch.int32)
     return {"ins_map": ins_map, "label": slots["cls"], "score": score,
-            "valid": slot_ok, "truncated": truncated}
+            "valid": slot_ok, "truncated": truncated[0]}

@@ -36,11 +36,12 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("topk.cu", "cc.cu", "run_totals.cu")
+SOURCES = ("topk.cu", "cc.cu", "run_totals.cu", "stamp.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-LAUNCHES: Dict[str, int] = {"topk": 0, "cc_multilabel": 0, "run_totals": 0}
+LAUNCHES: Dict[str, int] = {"topk": 0, "cc_multilabel": 0, "run_totals": 0,
+                            "stamp": 0, "cc_binary": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -50,9 +51,12 @@ _SIGNATURES = {
     "cl4_topk_chunk": ([], _I),
     "cl4_topk_f32": ([_P, _I, _I, _I, _P, _P, _P, _P, _P], _I),
     "cl4_cc_multilabel": ([_P, _P, _I, _I, _I, _I, _P], _I),
+    "cl4_cc_binary": ([_P, _P, _I, _I, _I, _I, _P], _I),
     "cl4_run_totals_tile": ([], _I),
     "cl4_run_totals": ([_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
                        _I),
+    "cl4_stamp_max_slots": ([], _I),
+    "cl4_stamp": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
     "cl4_error_string": ([_I], ctypes.c_char_p),
     "cl4_set_device": ([_I], _I),
 }

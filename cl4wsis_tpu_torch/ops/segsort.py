@@ -111,9 +111,3 @@ def run_totals(skey: torch.Tensor, v1: torch.Tensor, v2: torch.Tensor,
     args = [t.to(torch.int32).contiguous() for t in (skey, v1, v2, v3)]
     return run_totals_cuda(*args)
 
-
-def run_totals1(skey: torch.Tensor, v1: torch.Tensor, v2: torch.Tensor,
-                v3: torch.Tensor) -> Totals:
-    """:func:`run_totals` for one (N,) row."""
-    return tuple(o[0] for o in run_totals(skey[None], v1[None], v2[None],
-                                          v3[None]))

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from cl4wsis_tpu_torch.ops import cc, kernels, segsort, topk
+from cl4wsis_tpu_torch.ops import cc, kernels, labelgen, segsort, topk
 
 pytestmark = pytest.mark.cuda
 
@@ -81,3 +81,65 @@ def test_run_totals_kernel_equals_plain(dev, B, N, n_keys):
     args = [torch.from_numpy(a).to(dev) for a in [keys] + vals]
     for g, w in zip(segsort.run_totals(*args), segsort.run_totals_plain(*args)):
         assert torch.equal(g, w)
+
+
+def border_slots(rs, B, K, H, W, C):
+    """Random slots plus one on every border and corner, off-plane centers,
+    invalid slots and class ids out of range."""
+    cy = rs.uniform(0, H, (B, K)).astype(np.float32)
+    cx = rs.uniform(0, W, (B, K)).astype(np.float32)
+    edge_y = [0.0, H - 0.5, 0.0, H - 1, 0.2, H - 1, H / 2, H / 2]
+    edge_x = [0.0, 0.0, W - 0.5, W - 1, W / 2, W / 2, 0.7, W - 0.1]
+    cy[:, :8], cx[:, :8] = edge_y, edge_x
+    cy[:, 8:12] = [-1.0, H + 0.5, 10.0, -0.001]
+    cx[:, 8:12] = [10.0, 10.0, W + 3.0, 10.0]
+    cls = rs.randint(0, C, (B, K)).astype(np.int32)
+    cls[:, 12], cls[:, 13] = C + 5, -3
+    valid = rs.rand(B, K) > 0.25
+    valid[:, :14] = True
+    return valid, cy, cx, cls
+
+
+@pytest.mark.parametrize("sigma,K,shape", [(6, 64, (512, 512)),
+                                           (6, 120, (512, 512)),
+                                           (30, 16, (200, 333)),
+                                           (1, 16, (7, 9))])
+def test_stamp_kernel_equals_plain(dev, sigma, K, shape):
+    """Bit-equal, launched once; sigma 30 is past the Pallas kernel's
+    limit of 21."""
+    rs = np.random.RandomState(sigma + K)
+    H, W = shape
+    B, C = 3, 20
+    args = [torch.from_numpy(a).to(dev)
+            for a in border_slots(rs, B, K, H, W, C)]
+    n = kernels.LAUNCHES["stamp"]
+    got = labelgen.stamp_centers_batched(*args, C, sigma, shape)
+    assert kernels.LAUNCHES["stamp"] == n + 1
+    want = labelgen.stamp_centers(*args, C, sigma, shape)
+    assert got.shape == (B, C, H, W)
+    assert torch.equal(got, want)
+    assert got.max() == 1.0
+
+
+def test_stamp_kernel_rejects_what_it_cannot_take(dev):
+    z = torch.zeros((1, 2000), device=dev)
+    with pytest.raises(ValueError):
+        labelgen.stamp_centers_cuda(z > 0, z, z, z.int(), 3, 6, (32, 32))
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+def test_cc_binary_kernel_equals_plain(dev, connectivity):
+    rs = np.random.RandomState(10 + connectivity)
+    masks = [rs.rand(130, 181) < 0.45, np.kron(rs.rand(20, 20) < 0.5,
+                                               np.ones((9, 9), bool)),
+             np.ones((1, 300), bool), np.zeros((7, 5), bool)]
+    for m in masks:
+        for t in (torch.from_numpy(m), torch.from_numpy(m.astype(np.uint8) * 3)):
+            t = t.to(dev)
+            n = kernels.LAUNCHES["cc_binary"]
+            got = cc.connected_components(t, connectivity)
+            assert kernels.LAUNCHES["cc_binary"] == n + 1
+            assert torch.equal(got, cc.cc_binary_plain(t, connectivity))
+    batch = torch.from_numpy(rs.rand(3, 40, 50) < 0.5).to(dev)
+    assert torch.equal(cc.connected_components(batch, connectivity),
+                       cc.cc_binary_plain(batch, connectivity))

@@ -183,12 +183,6 @@ def test_run_totals_matches_jax(B, N, n_keys):
     for g, w in zip(got, want):
         assert g.dtype == torch.int32
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    got1 = segsort.run_totals1(*(torch.from_numpy(a[0])
-                                 for a in [keys] + vals))
-    want1 = jax.jit(jseg.run_totals1)(*(jnp.asarray(a[0])
-                                        for a in [keys] + vals))
-    for g, w in zip(got1, want1):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 def test_segsort_helpers_match_jax():
@@ -225,8 +219,9 @@ def test_max_pool_same_k41_matches_jax():
     rs = np.random.RandomState(4)
     x = rs.rand(1, 50, 70, 3).astype(np.float32)
     x[x < 0.9] = -1.0
-    got = max_pool_same(torch.from_numpy(x), 41).numpy()
-    np.testing.assert_array_equal(got, np.asarray(jpool(jnp.asarray(x), 41)))
+    got = max_pool_same(torch.from_numpy(x).permute(0, 3, 1, 2), 41)
+    np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(),
+                                  np.asarray(jpool(jnp.asarray(x), 41)))
 
 
 @pytest.mark.parametrize("align", [True, False])

@@ -136,8 +136,9 @@ def test_predictor_without_a_card_raises():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port, and chip_smoke.py, loads neither
-    jax nor the JAX package (whose name the port's name starts with)."""
+    """Importing every module of the port (the training slice's among them),
+    and chip_smoke.py, loads neither jax nor the JAX package (whose name
+    the port's name starts with)."""
     code = r"""
 import importlib, pathlib, sys
 root = pathlib.Path("cl4wsis_tpu_torch")
@@ -148,7 +149,10 @@ importlib.import_module("chip_smoke")
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                                       "cl4wsis_tpu")]
 print(len(mods), bad)
-assert len(mods) > 15 and not bad, bad
+assert len(mods) > 25 and not bad, bad
+assert {"cl4wsis_tpu_torch.train.phase2", "cl4wsis_tpu_torch.ops.labelgen",
+        "cl4wsis_tpu_torch.wss.modules",
+        "cl4wsis_tpu_torch.data.synthetic"} <= set(mods), mods
 """
     p = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
