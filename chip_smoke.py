@@ -8,9 +8,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
   1. print the card's name and power limit; build the CUDA kernels of
      cl4wsis_tpu_torch/csrc from the checkout;
   2. hold every kernel against its plain PyTorch version on the card at
-     the serving and the training shapes (bit-equal), and time kernel,
+     the serving and the training shapes (bit-equal; top-k on CAM-like,
+     peak-like and NMS rows, CC at connectivity 4 and 8), and time kernel,
      plain version and, where one exists, the single PyTorch call
-     computing the same function;
+     computing the same function (CUDA events and device time);
   3. serve 4 requests of VOC-native sizes through Predictor on the
      full-width ResNet-101 model (classes (16, 5), random weights from a
      seed, bfloat16), counting the kernel launches of each request; then run
@@ -176,6 +177,21 @@ def nms_rows(B, N, rs):
     return x
 
 
+def peak_rows(B, N, rs):
+    """Rows like the CAM peak planes `heat * keep`: 0.0 where the max pool
+    rejects a pixel (-0.0 where the heat is negative), a few peaks, a row
+    with no peak and a row of fewer peaks than k."""
+    x = np.zeros((B, N), np.float32)
+    for b in range(B):
+        pos = rs.choice(N, rs.randint(0, 200), replace=False)
+        x[b, pos] = rs.rand(len(pos)).astype(np.float32)
+    x[1] = 0.0
+    x[2, rs.rand(N) < 0.3] = -0.0
+    x[3] = 0.0
+    x[3, [5, 8191, 8192, 200000]] = 0.5
+    return x
+
+
 def painted_scene(H, W, C, rs, n_inst=40, cell=64):
     """A seg/center/offset scene with instances in distinct grid cells, so
     each must come out as exactly one valid slot; every fifth instance has
@@ -279,7 +295,9 @@ def plain_versions():
 def timings(kernel, plain, library=None, plain_iters=5):
     return dict(ms=time_ms(kernel), device_ms=device_ms(kernel),
                 plain_ms=time_ms(plain, iters=plain_iters),
-                library_ms=None if library is None else time_ms(library))
+                library_ms=None if library is None else time_ms(library),
+                library_device_ms=(None if library is None
+                                   else device_ms(library)))
 
 
 def check_kernels(dev, rs):
@@ -314,6 +332,13 @@ def check_kernels(dev, rs):
         shape="(16, 512, 512) int32, connectivity 8, blobby 20-class maps",
         **timings(lambda: cc.cc_multilabel_cuda(batch, 8),
                   lambda: cc.cc_multilabel_plain(batch, 8), plain_iters=2),
+        connectivity_4=dict(
+            shape="(16, 512, 512) int32, connectivity 4 (the step's second "
+                  "call), blobby 20-class maps",
+            bound_ms=bound_ms(2 * batch.numel() * 4),
+            **timings(lambda: cc.cc_multilabel_cuda(batch, 4),
+                      lambda: cc.cc_multilabel_plain(batch, 4),
+                      plain_iters=2)),
         serving=dict(shape="(512, 512) int32, connectivity 8, blobby",
                      bound_ms=bound_ms(2 * t.numel() * 4),
                      **timings(lambda: cc.cc_multilabel_cuda(t, 8),
@@ -339,32 +364,42 @@ def check_kernels(dev, rs):
         **timings(lambda: cc.cc_binary_cuda(m0, 8),
                   lambda: cc.cc_binary_plain(m0, 8)))
 
-    # top-k: peaks (80, 262144) k 25 and NMS rows k 16 (training); NMS
-    # rows (20, 262144) k 32 (serving)
+    # top-k: CAM-like and peak-like rows (80, 262144) k 25 and NMS rows
+    # k 16 (training); NMS rows (20, 262144) k 32 (serving). Equality is
+    # bitwise, so +0.0 and -0.0 must not be swapped.
     x = torch.from_numpy(nms_rows(20, 512 * 512, rs)).to(dev)
     cam = torch.from_numpy(rs.rand(80, 512 * 512).astype(np.float32)
                            ** 8).to(dev)
+    peaks80 = torch.from_numpy(peak_rows(80, 512 * 512, rs)).to(dev)
     nms80 = torch.from_numpy(nms_rows(80, 512 * 512, rs)).to(dev)
     err = 0.0
-    for rows, k in ((x, 32), (cam, 25), (nms80, 16),
+    for rows, k in ((x, 32), (cam, 25), (peaks80, 25), (nms80, 16),
                     (cam[:, :5000].contiguous(), 7)):
         gv, gi = topk.topk_cuda(rows, k)
         pv, pi = topk.topk_plain(rows, k)
         e = max(max_abs_err(gv, pv), max_abs_err(gi, pi))
+        if not torch.equal(gv.view(torch.int32), pv.view(torch.int32)):
+            e = float("inf")        # a signed zero swapped, say
         log(f"topk {tuple(rows.shape)} k={k}: max_abs_err {e}")
         err = max(err, e)
+
+    def topk_case(rows, k, shape):
+        return dict(shape=shape, bound_ms=bound_ms(rows.numel() * 4 +
+                                                   rows.shape[0] * k * 8),
+                    **timings(lambda: topk.topk_cuda(rows, k),
+                              lambda: topk.topk_plain(rows, k),
+                              lambda: torch.topk(rows, k)))
     res["topk"] = dict(
         max_abs_err=err,
-        bound_ms=bound_ms(cam.numel() * 4 + cam.shape[0] * 25 * 8),
-        shape="(80, 262144) float32, k 25, CAM-like rows",
-        **timings(lambda: topk.topk_cuda(cam, 25),
-                  lambda: topk.topk_plain(cam, 25),
-                  lambda: torch.topk(cam, 25)),
-        serving=dict(shape="(20, 262144) float32, k 32, NMS-like rows",
-                     bound_ms=bound_ms(x.numel() * 4 + x.shape[0] * 32 * 8),
-                     **timings(lambda: topk.topk_cuda(x, 32),
-                               lambda: topk.topk_plain(x, 32),
-                               lambda: torch.topk(x, 32))))
+        **topk_case(cam, 25, "(80, 262144) float32, k 25, CAM-like rows"),
+        cases=[topk_case(peaks80, 25, "(80, 262144) float32, k 25, "
+                                      "peak-like rows (mostly 0.0)"),
+               topk_case(nms80, 16, "(80, 262144) float32, k 16, NMS rows "
+                                    "(mostly -1.0)")],
+        serving=topk_case(x, 32, "(20, 262144) float32, k 32, NMS-like rows"))
+    for r in [res["topk"], *res["topk"]["cases"], res["topk"]["serving"]]:
+        log(f"topk {r['shape']}: {r['device_ms']} ms device, torch.topk "
+            f"{r['library_device_ms']} ms device")
 
     # run totals: (1, 262144) serving, (16, 262144) training
     err = 0.0
@@ -818,8 +853,11 @@ def main() -> int:
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": "bytes",
-                     "library_ms": r["library_ms"], "shape": r["shape"],
-                     "serving": r.get("serving")})
+                     "library_ms": r["library_ms"],
+                     "library_device_ms": r["library_device_ms"],
+                     "shape": r["shape"], "serving": r.get("serving"),
+                     "cases": r.get("cases"),
+                     "connectivity_4": r.get("connectivity_4")})
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,7 +48,8 @@ _lib: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "cl4_topk_chunk": ([], _I),
+    "cl4_topk_segment": ([], _I),
+    "cl4_topk_max_k": ([], _I),
     "cl4_topk_f32": ([_P, _I, _I, _I, _P, _P, _P, _P, _P], _I),
     "cl4_cc_multilabel": ([_P, _P, _I, _I, _I, _I, _P], _I),
     "cl4_cc_binary": ([_P, _P, _I, _I, _I, _I, _P], _I),

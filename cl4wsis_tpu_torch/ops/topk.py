@@ -37,13 +37,13 @@ def topk_cuda(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     kernels.require_cuda(x, torch.float32, 2, "topk")
     B, N = x.shape
     lib = kernels.lib()
-    chunk = lib.cl4_topk_chunk()
-    if not 1 <= k <= min(N, chunk // 2):
-        raise ValueError(f"topk: need 1 <= k <= min(N, {chunk // 2}), "
+    seg, max_k = lib.cl4_topk_segment(), lib.cl4_topk_max_k()
+    if not 1 <= k <= min(N, max_k):
+        raise ValueError(f"topk: need 1 <= k <= min(N, {max_k}), "
                          f"got k={k}, N={N}")
     vals = torch.empty((B, k), dtype=torch.float32, device=x.device)
     idx = torch.empty((B, k), dtype=torch.int32, device=x.device)
-    n_scratch = B * (-(-N // chunk)) * k if N > chunk else 1
+    n_scratch = B * (-(-N // seg)) * k if N > seg else 1
     scratch = torch.empty((2, n_scratch), dtype=torch.int64, device=x.device)
     err = lib.cl4_topk_f32(kernels.ptr(x), B, N, k, kernels.ptr(vals),
                            kernels.ptr(idx), kernels.ptr(scratch[0]),

@@ -63,10 +63,53 @@ def test_topk_kernel_equals_plain(dev, B, N, k):
     assert torch.equal(gi, pi) and torch.equal(gv, pv)
 
 
+def _topk_rows(name, B, N, rs):
+    x = rs.rand(B, N).astype(np.float32)
+    if name == "all_equal":
+        x[:] = 0.25
+    elif name == "all_neginf":
+        x[:] = -np.inf
+    elif name == "signed_zeros":
+        x[:] = 0.0
+        x[rs.rand(B, N) < 0.5] = -0.0
+    elif name == "ties_straddle_segments":
+        # equal maxima across the 8192-key segment edges: lower columns win
+        x[:, 8190:8195] = 2.0
+        x[:, 16380:16390] = 2.0
+        x[1] = 1.0
+    elif name == "peak_rows":
+        x[:] = 0.0
+        for b in range(B):
+            x[b, rs.choice(N, rs.randint(0, 40), replace=False)] = rs.rand()
+    return x
+
+
+@pytest.mark.parametrize("name,B,N,k", [
+    ("all_equal", 3, 20000, 25), ("all_neginf", 2, 20000, 16),
+    ("signed_zeros", 2, 20000, 32), ("ties_straddle_segments", 2, 24581, 4),
+    ("ties_straddle_segments", 2, 24581, 25), ("n_below_segment", 3, 5000, 25),
+    ("k_equals_n", 2, 1024, 1024), ("k_at_limit", 2, 262144, 1024),
+    ("k_at_limit", 3, 9000, 1024), ("peak_rows", 80, 262144, 25)])
+def test_topk_kernel_trouble_spots(dev, name, B, N, k):
+    """Bit-equal to the plain version on the rows the select finds hard."""
+    t = torch.from_numpy(_topk_rows(name, B, N, np.random.RandomState(k))
+                         ).to(dev)
+    n = kernels.LAUNCHES["topk"]
+    gv, gi = topk.topk_hier(t, k)
+    assert kernels.LAUNCHES["topk"] == n + 1
+    pv, pi = topk.topk_plain(t, k)
+    assert torch.equal(gi, pi)
+    assert torch.equal(gv.view(torch.int32), pv.view(torch.int32))
+
+
 def test_topk_kernel_rejects_what_it_cannot_take(dev):
     x = torch.zeros(2, 10000, device=dev)
     with pytest.raises(ValueError):
         topk.topk_cuda(x, 4096)
+    with pytest.raises(ValueError):
+        topk.topk_cuda(x, 1025)             # one past the limit of 1024
+    with pytest.raises(ValueError):
+        topk.topk_cuda(x[:, :10].contiguous(), 11)
     with pytest.raises(TypeError):
         topk.topk_cuda(x.double(), 4)
 
@@ -143,3 +186,59 @@ def test_cc_binary_kernel_equals_plain(dev, connectivity):
     batch = torch.from_numpy(rs.rand(3, 40, 50) < 0.5).to(dev)
     assert torch.equal(cc.connected_components(batch, connectivity),
                        cc.cc_binary_plain(batch, connectivity))
+
+
+def _spiral(n):
+    """One-pixel corridor wound inward: union chains that cross every
+    tile."""
+    m = np.zeros((n, n), np.int32)
+    y = x = d = turns = 0
+    dirs = ((0, 1), (1, 0), (0, -1), (-1, 0))
+    m[0, 0] = 1
+    while turns < 2:
+        dy, dx = dirs[d]
+        ny, nx, ay, ax = y + dy, x + dx, y + 2 * dy, x + 2 * dx
+        ahead = 0 <= ay < n and 0 <= ax < n and m[ay, ax]
+        if 0 <= ny < n and 0 <= nx < n and not m[ny, nx] and not ahead:
+            y, x, turns = ny, nx, 0
+            m[y, x] = 1
+        else:
+            d, turns = (d + 1) % 4, turns + 1
+    return m
+
+
+def _cc_trouble_map(name, rs):
+    if name == "non_multiple":       # neither side a multiple of 32
+        return np.kron(rs.randint(0, 5, (15, 11)), np.ones((7, 7), int)
+                       )[:100, :77]
+    if name == "row":
+        return (rs.rand(1, 300) < 0.8) * rs.randint(1, 3, (1, 300))
+    if name == "column":
+        return (rs.rand(300, 1) < 0.8) * rs.randint(1, 3, (300, 1))
+    if name == "spiral":
+        return _spiral(200)
+    if name == "tile_edges":         # classes change exactly on tile edges
+        m = np.kron(rs.randint(0, 3, (5, 6)), np.ones((32, 32), int))
+        m[::7, :] = 1                 # and lines across many tile edges
+        m[:, 31::33] = 2
+        return m
+    # planes of a batch, each one component touching the plane's edges:
+    # they must not unite across the plane boundary
+    m = np.ones((4, 64, 70), int)
+    m[1, 30:34, :] = 0
+    m[2] = rs.randint(0, 2, (64, 70))
+    return m
+
+
+@pytest.mark.parametrize("connectivity", [4, 8])
+@pytest.mark.parametrize("name", ["non_multiple", "row", "column", "spiral",
+                                  "tile_edges", "batch"])
+def test_cc_kernels_trouble_spots(dev, name, connectivity):
+    """Both CC kernels bit-equal to their plain versions where the tiled
+    passes meet their edges."""
+    m = torch.from_numpy(_cc_trouble_map(name, np.random.RandomState(7))
+                         .astype(np.int32)).to(dev)
+    assert torch.equal(cc.connected_components_multilabel(m, connectivity),
+                       cc.cc_multilabel_plain(m, connectivity))
+    assert torch.equal(cc.connected_components(m > 0, connectivity),
+                       cc.cc_binary_plain(m > 0, connectivity))

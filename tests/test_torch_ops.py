@@ -61,12 +61,28 @@ def spiral(n):
     return m
 
 
+def tile_edges(H, W, seed):
+    """Classes that change exactly on 32-pixel edges, squares centred on
+    the tile corners and a diagonal line (one component at connectivity 8
+    only): components that cross the edges in both axes."""
+    rs = np.random.RandomState(seed)
+    m = np.kron(rs.randint(0, 4, (H // 32 + 1, W // 32 + 1)),
+                np.ones((32, 32), np.int64))[:H, :W]
+    for cy in range(32, H, 32):
+        for cx in range(32, W, 32):
+            m[cy - 5:cy + 5, cx - 5:cx + 5] = rs.randint(1, 4)
+    d = np.arange(min(H, W))
+    m[d, d] = 4
+    return m.astype(np.int32)
+
+
 CLASS_MAPS = {
     "blobby": lambda: blobby(64, 64, 20, 0),
     "speckle": lambda: speckle(64, 64, 3, 1),
     "spiral": lambda: spiral(64),
     "nonsquare": lambda: blobby(40, 72, 5, 2),
     "spiral_classes": lambda: spiral(48) * 3 + (spiral(48) == 0) * 2,
+    "tile_edges": lambda: tile_edges(80, 100, 3),
 }
 
 
@@ -136,16 +152,35 @@ def _topk_rows(N, seed):
     return np.stack(rows).astype(np.float32)
 
 
-@pytest.mark.parametrize("N", [8192, 3000])
-def test_topk_matches_jax(N):
-    x = _topk_rows(N, 0)
-    gv, gi = topk_hier(torch.from_numpy(x), 32)
+def _topk_case(case):
+    """(rows, k): the mixed rows of `_topk_rows` at N 8192 and 3000; rows
+    of one value each; equal maxima straddling index 8192 (the kernel's
+    segment edge); k = N."""
+    if case in ("8192", "3000"):
+        return _topk_rows(int(case), 0), 32
+    if case == "all_equal":
+        x = np.full((3, 9000), 0.25, np.float32)
+        x[1], x[2] = -1.0, -0.0
+        return x, 32
+    if case == "straddle_8192":
+        x = np.random.RandomState(1).rand(2, 16384).astype(np.float32)
+        x[:, 8180:8200] = 2.0
+        x[1, 8192:8200] = 3.0
+        return x, 32
+    return _topk_rows(1000, 2), 1000                 # k_equals_n
+
+
+@pytest.mark.parametrize("case", ["8192", "3000", "all_equal",
+                                  "straddle_8192", "k_equals_n"])
+def test_topk_matches_jax(case):
+    x, k = _topk_case(case)
+    gv, gi = topk_hier(torch.from_numpy(x), k)
     assert gi.dtype == torch.int32
-    wv, wi = jtopk(jnp.asarray(x), 32)
+    wv, wi = jtopk(jnp.asarray(x), k)
     np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
     np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
     # signed zeros keep their order: +0.0 above -0.0, as lax.top_k
-    lv, li = jax.lax.top_k(jnp.asarray(x), 32)
+    lv, li = jax.lax.top_k(jnp.asarray(x), k)
     np.testing.assert_array_equal(gi.numpy(), np.asarray(li))
     np.testing.assert_array_equal(np.signbit(gv.numpy()),
                                   np.signbit(np.asarray(lv)))
