@@ -9,9 +9,11 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      cl4wsis_tpu_torch/csrc from the checkout;
   2. hold every kernel against its plain PyTorch version on the card at
      the serving and the training shapes (bit-equal; top-k on CAM-like,
-     peak-like and NMS rows, CC at connectivity 4 and 8), and time kernel,
-     plain version and, where one exists, the single PyTorch call
-     computing the same function (CUDA events and device time);
+     peak-like and NMS rows, CC at connectivity 4 and 8, run totals on
+     uniform and step-like rows and where runs meet the tiles' edges, the
+     stamp on random slots and on the train step's own slot sets), and
+     time kernel, plain version and, where one exists, the single PyTorch
+     call computing the same function (CUDA events and device time);
   3. serve 4 requests of VOC-native sizes through Predictor on the
      full-width ResNet-101 model (classes (16, 5), random weights from a
      seed, bfloat16), counting the kernel launches of each request; then run
@@ -24,7 +26,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
   5. train: 2 warm-up and 5 timed phase-2 steps of the VOC 15-5 step-1
      model (ResNet-101, batch 16 at 512^2, bfloat16 autocast) with the old
      model, PseudoLabeler and PeakGenerator, counting each step's kernel
-     launches; then one profiled step;
+     launches and the run structure of the key rows the step hands to run
+     totals; then one profiled step;
   6. print the kernels line (JSON) and, last, the ok line (JSON).
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -111,11 +114,16 @@ def device_ms(fn, iters=10):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in kernel_rows(prof))
+    us = 0
+    for _ in range(3):      # a profile now and then loses rows, or all
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = kernel_rows(prof)
+        us = sum(e.self_device_time_total for e in rows)
+        if us > 0 and all(e.count % iters == 0 for e in rows):
+            break
     return us / iters / 1e3 if us > 0 else None
 
 
@@ -190,6 +198,53 @@ def peak_rows(B, N, rs):
     x[3] = 0.0
     x[3, [5, 8191, 8192, 200000]] = 0.5
     return x
+
+
+def runs_of(lengths):
+    """Sorted int32 keys with the given run lengths."""
+    return np.repeat(np.arange(len(lengths)), lengths).astype(np.int32)
+
+
+def step_like_rows(nb, N, rs):
+    """Key rows as the refinement hands them to run totals: the sorted
+    roots of a few hundred small components (runs of 10-40 elements), then
+    one run at the top key N over at least 90 % of the row."""
+    rows = []
+    for _ in range(nb):
+        short = rs.randint(10, 41, N // 100)
+        keys = np.repeat(3 * np.arange(len(short)), short)
+        keys = keys[:rs.randint(N // 100, N // 10)]
+        rows.append(np.concatenate([keys, np.full(N - len(keys), N)]))
+    return np.stack(rows).astype(np.int32)
+
+
+def run_totals_edge_cases(tile, rs):
+    """Small key rows where the tiled passes meet their edges."""
+    return {
+        "single run": np.full((3, 5 * tile + 40), 11, np.int32),
+        "all distinct": np.arange(3 * tile + 8, dtype=np.int32)[None].repeat(2, 0),
+        "runs of one tile": runs_of([tile] * 5)[None],
+        "runs of one tile + 1": runs_of([tile + 1] * 5)[None],
+        "runs of one tile - 1": runs_of([tile - 1] * 5)[None],
+        "runs ending on tile edges": runs_of(
+            [tile // 2, tile // 2, 40 * tile, 1, tile - 1, 2 * tile, 5])[None],
+        "N = 1": np.zeros((2, 1), np.int32),
+        "N = tile - 1": np.sort(rs.randint(0, 9, (2, tile - 1))).astype(np.int32),
+        "N = tile + 1": np.sort(rs.randint(0, 9, (2, tile + 1))).astype(np.int32),
+    }
+
+
+def step_slots(name, rs, nb, K, H, W, C):
+    """The two slot sets a phase-2 step stamps: "pseudo", 1-3 valid slots
+    an image, and "refined" under random center heads, none valid."""
+    cy = rs.uniform(0, H, (nb, K)).astype(np.float32)
+    cx = rs.uniform(0, W, (nb, K)).astype(np.float32)
+    cls = rs.randint(0, C, (nb, K)).astype(np.int32)
+    valid = np.zeros((nb, K), bool)
+    if name == "pseudo":
+        for b in range(nb):
+            valid[b, rs.choice(K, rs.randint(1, 4), replace=False)] = True
+    return valid, cy, cx, cls
 
 
 def painted_scene(H, W, C, rs, n_inst=40, cell=64):
@@ -288,6 +343,37 @@ def plain_versions():
     finally:
         (cc.connected_components_multilabel, topk.topk_hier,
          segsort.run_totals, labelgen.stamp_centers_batched) = saved
+
+
+@contextlib.contextmanager
+def watching_run_totals():
+    """While open, keep the run structure of every batch of key rows that
+    segsort.run_totals is given: runs per row, the longest run per row and
+    the row length (device tensors; read them after a synchronize)."""
+    rows = []
+    real = segsort.run_totals
+
+    def watching(skey, *a):
+        out = real(skey, *a)
+        rows.append((segsort.run_starts(skey).sum(1), out[0].max(1).values,
+                     skey.shape[1]))
+        return out
+
+    segsort.run_totals = watching
+    try:
+        yield rows
+    finally:
+        segsort.run_totals = real
+
+
+def log_run_structure(what, rows):
+    for i, (n_runs, longest, n) in enumerate(rows):
+        n_runs, share = n_runs.cpu().numpy(), longest.cpu().numpy() / n
+        log(f"{what} {i}: run totals got {len(n_runs)} key rows of {n}: runs "
+            f"per row min {n_runs.min()}, median "
+            f"{int(np.median(n_runs))}, max {n_runs.max()}; the longest "
+            f"run's share of its row min {share.min():.4f}, median "
+            f"{float(np.median(share)):.4f}, max {share.max():.4f}")
 
 
 # ----------------------------------------------------------------- phases
@@ -401,31 +487,59 @@ def check_kernels(dev, rs):
         log(f"topk {r['shape']}: {r['device_ms']} ms device, torch.topk "
             f"{r['library_device_ms']} ms device")
 
-    # run totals: (1, 262144) serving, (16, 262144) training
-    err = 0.0
-    for nb, n_keys in ((1, 3000), (16, 40000), (1, 1)):
-        keys = np.sort(rs.randint(0, n_keys, (nb, 512 * 512)), axis=1)
-        args = [torch.from_numpy(keys.astype(np.int32)).to(dev)] + [
-            torch.from_numpy(rs.randint(0, 512, (nb, 512 * 512))
-                             .astype(np.int32)).to(dev) for _ in range(3)]
+    # run totals: (1, 262144) serving, (16, 262144) training on uniform
+    # keys (runs of ~6.5) and on step-like rows (one run over >= 90 % of a
+    # row), and small rows where runs meet the tiles' edges
+    def rt_check(args, what):
         got = segsort.run_totals_cuda(*args)
         want = segsort.run_totals_plain(*args)
         e = max(max_abs_err(g, w) for g, w in zip(got, want))
-        log(f"run_totals ({nb}, 262144) keys<{n_keys}: max_abs_err {e}")
-        err = max(err, e)
+        log(f"run_totals {what}: max_abs_err {e}")
+        return e
+
+    def rt_args(keys, payloads=None):
+        if payloads is None:
+            payloads = [rs.randint(0, 512, keys.shape) for _ in range(3)]
+        return [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+                for a in [keys] + payloads]
+
+    def rt_case(args, shape):
+        return dict(shape=shape, bound_ms=bound_ms(8 * args[0].numel() * 4),
+                    **timings(lambda: segsort.run_totals_cuda(*args),
+                              lambda: segsort.run_totals_plain(*args)))
+    err = 0.0
+    for nb, n_keys in ((1, 3000), (16, 40000), (1, 1)):
+        keys = np.sort(rs.randint(0, n_keys, (nb, 512 * 512)), axis=1)
+        args = rt_args(keys)
+        err = max(err, rt_check(args, f"({nb}, 262144) keys<{n_keys}"))
         if n_keys == 3000:
             serve_args = args
         if nb == 16:
             train_args = args
+    step_keys = step_like_rows(16, 512 * 512, rs)
+    yx = np.broadcast_to(np.arange(512 * 512), step_keys.shape)
+    step_args = rt_args(step_keys, [yx // 512, yx % 512,
+                                    np.zeros_like(step_keys)])
+    err = max(err, rt_check(step_args, "(16, 262144) step-like rows"))
+    tile = kernels.lib().cl4_run_totals_tile()
+    for name, keys in run_totals_edge_cases(tile, rs).items():
+        err = max(err, rt_check(rt_args(keys), f"{keys.shape} {name}"))
+        wrap = [rs.choice([-1, 1], keys.shape) * (2 ** 30 - rs.randint(
+            0, 9, keys.shape)) for _ in range(2)] + [np.full(keys.shape,
+                                                             2 ** 30)]
+        err = max(err, rt_check(rt_args(keys, wrap),
+                                f"{keys.shape} {name}, sums wrapping int32"))
     res["run_totals"] = dict(
-        max_abs_err=err, bound_ms=bound_ms(8 * train_args[0].numel() * 4),
-        shape="(16, 262144) int32 x 4 in, x 4 out",
-        **timings(lambda: segsort.run_totals_cuda(*train_args),
-                  lambda: segsort.run_totals_plain(*train_args)),
-        serving=dict(shape="(1, 262144) int32 x 4 in, x 4 out",
-                     bound_ms=bound_ms(8 * serve_args[0].numel() * 4),
-                     **timings(lambda: segsort.run_totals_cuda(*serve_args),
-                               lambda: segsort.run_totals_plain(*serve_args))))
+        max_abs_err=err,
+        **rt_case(train_args, "(16, 262144) int32 x 4 in, x 4 out, uniform "
+                              "keys (runs of ~6.5)"),
+        cases=[rt_case(step_args, "(16, 262144) int32 x 4 in, x 4 out, "
+                                  "step-like rows (one run over >= 90 %)")],
+        serving=rt_case(serve_args, "(1, 262144) int32 x 4 in, x 4 out"))
+    for r in [res["run_totals"], *res["run_totals"]["cases"],
+              res["run_totals"]["serving"]]:
+        log(f"run_totals {r['shape']}: {r['device_ms']} ms device, "
+            f"{r['ms']} ms events, bound {r['bound_ms']:.6f} ms")
 
     # stamp: (16, K) slots -> (16, 20, 512, 512), K 64 (pseudo) and 120
     # (refined), sigma 6 and 30 (past the Pallas kernel's 21), slots on
@@ -445,13 +559,45 @@ def check_kernels(dev, rs):
             if K == 120 and sigma == 6:
                 stamp_args = args
     out_bytes = B * C * S * S * 4
+
+    def stamp_case(args, sigma, shape):
+        K = args[0].shape[1]
+        return dict(shape=shape, bound_ms=bound_ms(out_bytes + K * B * 13),
+                    **timings(lambda: labelgen.stamp_centers_cuda(
+                                  *args, C, sigma, (S, S)),
+                              lambda: labelgen.stamp_centers(
+                                  *args, C, sigma, (S, S))))
+    cases = []
+    for name, K in (("pseudo", 64), ("refined", 120)):
+        args = [torch.from_numpy(a).to(dev)
+                for a in step_slots(name, rs, B, K, S, S, C)]
+        e = max_abs_err(labelgen.stamp_centers_cuda(*args, C, 6, (S, S)),
+                        labelgen.stamp_centers(*args, C, 6, (S, S)))
+        log(f"stamp (16, {K}) {name} slots of a step, "
+            f"{int(args[0].sum())} valid: max_abs_err {e}")
+        err = max(err, e)
+        cases.append(stamp_case(args, 6, (
+            f"(16, {K}) slots, {int(args[0].sum())} valid (the step's {name} "
+            f"stamp) -> (16, 20, 512, 512) float32, sigma 6")))
     res["stamp"] = dict(
-        max_abs_err=err,
-        bound_ms=bound_ms(out_bytes + 120 * B * 13),
-        shape="(16, 120) slots -> (16, 20, 512, 512) float32, sigma 6",
-        **timings(lambda: labelgen.stamp_centers_cuda(*stamp_args, C, 6,
-                                                      (S, S)),
-                  lambda: labelgen.stamp_centers(*stamp_args, C, 6, (S, S))))
+        max_abs_err=err, cases=cases,
+        **stamp_case(stamp_args, 6, "(16, 120) slots -> (16, 20, 512, 512) "
+                                    "float32, sigma 6"))
+    for r in [res["stamp"], *cases]:
+        log(f"stamp {r['shape']}: {r['device_ms']} ms device, {r['ms']} ms "
+            f"events, bound {r['bound_ms']:.6f} ms")
+
+    def wide():
+        return labelgen.stamp_centers_cuda(*stamp_args, C, 30, (S, S))
+    log(f"stamp (16, 120) slots, sigma 30 (183 x 183 windows): "
+        f"{device_ms(wide, iters=3)} ms device, "
+        f"{time_ms(wide, iters=3, warmup=1)} ms events")
+    planes = torch.empty((B, C, S, S), dtype=torch.float32, device=dev)
+    log(f"yardstick, out.zero_() on (16, 20, 512, 512) float32: "
+        f"{device_ms(planes.zero_)} ms device, {time_ms(planes.zero_)} ms "
+        f"events (a fill, not the stamp; the bound at 3.35 TB/s is "
+        f"{bound_ms(out_bytes):.6f} ms)")
+    del planes
     for name, r in res.items():
         if r["max_abs_err"] != 0.0:
             raise AssertionError(f"kernel {name} disagrees with its plain "
@@ -597,8 +743,10 @@ def painted_factory(dev, rs):
     args = [torch.from_numpy(a).to(dev) for a in arrays]
     kw = dict(num_classes=OLD + NEW - 1, first_class=OLD - 1)
     before = dict(kernels.LAUNCHES)
-    got = phase2.label_factory(*args, **kw)
+    with watching_run_totals() as key_rows:
+        got = phase2.label_factory(*args, **kw)
     torch.cuda.synchronize()
+    log_run_structure("painted factory batch, call", key_rows)
     used = {k: kernels.LAUNCHES[k] - before[k] for k in before}
     if used != PER_FACTORY:
         raise AssertionError(f"label factory launches {used}, expected "
@@ -719,26 +867,36 @@ def train(dev):
         return real_stamp(valid, *a)
 
     labelgen.stamp_centers_batched = counting_stamp
+
     torch.cuda.synchronize()
     kernels.reset_launches()
     times, metrics = [], []
+
+    def one_step(i):
+        before_l = dict(kernels.LAUNCHES)
+        t = time.perf_counter()
+        m = step(state, batches[i % 2], gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        delta = {k: kernels.LAUNCHES[k] - before_l[k] for k in before_l}
+        if delta != PER_STEP:
+            raise AssertionError(f"step {i}: launches {delta}, expected "
+                                 f"{PER_STEP}")
+        metrics.append({k: float(v) for k, v in m.items()})
+
     try:
-        for i in range(WARMUP_STEPS + TIMED_STEPS):
-            if i == WARMUP_STEPS:
-                torch.cuda.reset_peak_memory_stats()
-            before_l = dict(kernels.LAUNCHES)
-            t = time.perf_counter()
-            m = step(state, batches[i % 2], gen)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-            delta = {k: kernels.LAUNCHES[k] - before_l[k] for k in before_l}
-            if delta != PER_STEP:
-                raise AssertionError(f"step {i}: launches {delta}, expected "
-                                     f"{PER_STEP}")
-            metrics.append({k: float(v) for k, v in m.items()})
+        # the warm-up steps also record the run structure of their key rows;
+        # the timed steps call run totals as the step itself does
+        with watching_run_totals() as key_rows:
+            for i in range(WARMUP_STEPS):
+                one_step(i)
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(WARMUP_STEPS, WARMUP_STEPS + TIMED_STEPS):
+            one_step(i)
     finally:
         labelgen.stamp_centers_batched = real_stamp
     launches = dict(kernels.LAUNCHES)
+    log_run_structure("step", key_rows)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     slots = [(int(stamped[2 * i]), int(stamped[2 * i + 1]))
              for i in range(len(times))]

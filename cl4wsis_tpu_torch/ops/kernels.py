@@ -54,8 +54,8 @@ _SIGNATURES = {
     "cl4_cc_multilabel": ([_P, _P, _I, _I, _I, _I, _P], _I),
     "cl4_cc_binary": ([_P, _P, _I, _I, _I, _I, _P], _I),
     "cl4_run_totals_tile": ([], _I),
-    "cl4_run_totals": ([_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
-                       _I),
+    "cl4_run_totals_desc": ([], _I),
+    "cl4_run_totals": ([_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P], _I),
     "cl4_stamp_max_slots": ([], _I),
     "cl4_stamp": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
     "cl4_error_string": ([_I], ctypes.c_char_p),

@@ -14,6 +14,13 @@ The port's layout is NCHW: (B, K) slot arrays -> (B, C, H, W) float32.
 CUDA tensor and runs :func:`stamp_centers`, the plain version, on a CPU
 tensor. Both take their template from :func:`_template` on the slots'
 device, so on one card they agree bit for bit.
+
+The kernel is bound by the bytes of its output, which is almost all zeros.
+A block owns a spatial tile of one image for all channels: it bins the
+image's slots once, stores the (tile, channel) pairs no slot touches as
+zeros, 16 bytes a thread, and gathers the max over the covering slots'
+template values only where there are any. It takes any sigma, any H and W,
+any B and C, and up to ``cl4_stamp_max_slots()`` slots per image.
 """
 
 from __future__ import annotations
@@ -93,7 +100,7 @@ def stamp_centers_cuda(valid: torch.Tensor, cy: torch.Tensor,
     if K > lib.cl4_stamp_max_slots():
         raise ValueError(f"stamp: at most {lib.cl4_stamp_max_slots()} slots "
                          f"per image, got {K}")
-    if sigma < 0 or B * num_classes > 65535 or min(B, H, W, num_classes) < 1:
+    if sigma < 0 or min(B, H, W, num_classes) < 1:
         raise ValueError(f"stamp: unsupported sigma {sigma} or shape "
                          f"(B {B}, C {num_classes}, H {H}, W {W})")
     tmpl = _template(sigma, valid.device)

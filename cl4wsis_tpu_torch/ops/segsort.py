@@ -7,6 +7,14 @@ element of a sorted key row, its run length and the run sums of three int32
 payloads: on a CUDA tensor through the kernel of ``csrc/run_totals.cu``, on
 a CPU tensor through :func:`run_totals_plain`, the composition of the
 helpers below.
+
+The kernel is bound by bytes (four rows read, four written). It finds run
+heads and tails from neighbouring keys, totals each run inside a tile with
+a forward and a backward segmented scan in registers, and settles the runs
+that cross tiles from one small descriptor per tile in a second launch that
+rewrites only those runs' elements. Its only scratch is the descriptors:
+``cl4_run_totals_desc()`` int32 per tile of ``cl4_run_totals_tile()``
+elements.
 """
 
 from __future__ import annotations
@@ -92,12 +100,12 @@ def run_totals_cuda(skey: torch.Tensor, v1: torch.Tensor, v2: torch.Tensor,
     lib = kernels.lib()
     n_tiles = -(-N // lib.cl4_run_totals_tile())
     outs = [torch.empty_like(skey) for _ in range(4)]
-    prefix = torch.empty((3, B, N), dtype=torch.int32, device=skey.device)
-    tiles = torch.empty((B, 3, n_tiles), dtype=torch.int32, device=skey.device)
+    desc = torch.empty((B, n_tiles, lib.cl4_run_totals_desc()),
+                       dtype=torch.int32, device=skey.device)
     err = lib.cl4_run_totals(
         *(kernels.ptr(t) for t in (skey, v1, v2, v3)), B, N,
-        *(kernels.ptr(o) for o in outs), kernels.ptr(prefix),
-        kernels.ptr(tiles), kernels.stream_of(skey))
+        *(kernels.ptr(o) for o in outs), kernels.ptr(desc),
+        kernels.stream_of(skey))
     kernels.check(err, "run_totals")
     return tuple(outs)
 

@@ -126,6 +126,92 @@ def test_run_totals_kernel_equals_plain(dev, B, N, n_keys):
         assert torch.equal(g, w)
 
 
+def _runs(lengths):
+    return np.repeat(np.arange(len(lengths)), lengths).astype(np.int32)
+
+
+def _run_totals_keys(name, tile, rs):
+    if name == "single_run":
+        return np.full((3, 5 * tile + 40), 11, np.int32)
+    if name == "single_run_262144":
+        return np.zeros((16, 262144), np.int32)
+    if name == "all_distinct":
+        return np.arange(3 * tile + 8, dtype=np.int32)[None].repeat(2, 0)
+    if name == "runs_of_one_tile":
+        return _runs([tile] * 5)[None]
+    if name == "runs_of_tile_plus_one":
+        return _runs([tile + 1] * 5)[None]
+    if name == "runs_of_tile_minus_one":
+        return _runs([tile - 1] * 5)[None]
+    if name == "run_ends_on_tile_edges":
+        return _runs([tile // 2, tile // 2, 40 * tile, 1, tile - 1, 2 * tile,
+                      5])[None]
+    if name == "n_tile_minus_1":
+        return np.sort(rs.randint(0, 9, (2, tile - 1))).astype(np.int32)
+    if name == "n_tile_plus_1":
+        return np.sort(rs.randint(0, 9, (2, tile + 1))).astype(np.int32)
+    if name == "n_odd":
+        return np.sort(rs.randint(0, 700, (5, 70001))).astype(np.int32)
+    if name == "many_rows":          # more rows than a grid's y extent
+        return np.sort(rs.randint(0, 3, (70000, 12))).astype(np.int32)
+    if name == "step_like":          # short runs, then one run at the top key
+        rows = []
+        for _ in range(16):
+            short = rs.randint(10, 41, 1200)
+            keys = np.repeat(3 * np.arange(1200), short)[:rs.randint(
+                2000, 26000)]
+            rows.append(np.concatenate(
+                [keys, np.full(262144 - len(keys), 262144)]))
+        return np.stack(rows).astype(np.int32)
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("wrap", [False, True])
+@pytest.mark.parametrize("name", [
+    "single_run", "single_run_262144", "all_distinct", "runs_of_one_tile",
+    "runs_of_tile_plus_one", "runs_of_tile_minus_one",
+    "run_ends_on_tile_edges", "n_tile_minus_1", "n_tile_plus_1", "n_odd",
+    "many_rows", "step_like"])
+def test_run_totals_kernel_trouble_spots(dev, name, wrap):
+    """Bit-equal where runs meet the tiles' edges, cross many tiles or fill
+    a row; with `wrap`, payloads near +-2^30 whose run sums wrap int32."""
+    rs = np.random.RandomState(len(name) + wrap)
+    tile = kernels.lib().cl4_run_totals_tile()
+    keys = _run_totals_keys(name, tile, rs)
+    if wrap:
+        vals = [(rs.choice([-1, 1], keys.shape) *
+                 (2 ** 30 - rs.randint(0, 9, keys.shape))).astype(np.int32)
+                for _ in range(2)] + [np.full(keys.shape, 2 ** 30, np.int32)]
+    else:
+        vals = [rs.randint(0, 512, keys.shape).astype(np.int32)
+                for _ in range(3)]
+    args = [torch.from_numpy(a).to(dev) for a in [keys] + vals]
+    n = kernels.LAUNCHES["run_totals"]
+    got = segsort.run_totals(*args)
+    assert kernels.LAUNCHES["run_totals"] == n + 1
+    for g, w in zip(got, segsort.run_totals_plain(*args)):
+        assert torch.equal(g, w)
+
+
+def test_built_kernels_have_the_emulated_shapes(dev):
+    """The library that was built carries the block shapes that the numpy
+    emulations of tests/test_torch_kernel_designs.py run at."""
+    lib = kernels.lib()
+    assert lib.cl4_run_totals_tile() == 256 * 4
+    assert lib.cl4_run_totals_desc() == 8
+    assert lib.cl4_stamp_max_slots() == 1024
+
+
+def test_run_totals_kernel_rejects_what_it_cannot_take(dev):
+    k = torch.zeros((2, 64), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        segsort.run_totals_cuda(k.long(), k, k, k)
+    with pytest.raises(ValueError):
+        segsort.run_totals_cuda(k, k[:, :32].contiguous(), k, k)
+    with pytest.raises(ValueError):
+        segsort.run_totals_cuda(k.cpu(), k, k, k)
+
+
 def border_slots(rs, B, K, H, W, C):
     """Random slots plus one on every border and corner, off-plane centers,
     invalid slots and class ids out of range."""
@@ -164,10 +250,78 @@ def test_stamp_kernel_equals_plain(dev, sigma, K, shape):
     assert got.max() == 1.0
 
 
+def _stamp_slots(name, rs, B, K, H, W, C):
+    cy = rs.uniform(0, H, (B, K)).astype(np.float32)
+    cx = rs.uniform(0, W, (B, K)).astype(np.float32)
+    cls = rs.randint(0, C, (B, K)).astype(np.int32)
+    valid = np.ones((B, K), bool)
+    if name == "few_valid":          # the step's pseudo stamp
+        valid[:] = False
+        for b in range(B):
+            valid[b, rs.choice(K, rs.randint(1, 4), replace=False)] = True
+    elif name == "all_invalid":      # the step's refined stamp
+        valid[:] = False
+    elif name == "one_tile":         # every slot on one tile, one channel
+        cy[:] = rs.uniform(16, 32, (B, K))
+        cx[:] = rs.uniform(64, 128, (B, K))
+        cls[:] = 2
+    return valid, cy, cx, cls
+
+
+@pytest.mark.parametrize("name,sigma,B,K,shape,C", [
+    ("few_valid", 6, 16, 64, (512, 512), 20),
+    ("all_invalid", 6, 16, 120, (512, 512), 20),
+    ("one_tile", 6, 2, 120, (512, 512), 20),
+    ("one_tile", 2, 2, 1024, (128, 256), 4),
+    ("random", 6, 2, 1024, (256, 256), 20),
+    ("random", 6, 2, 0, (64, 64), 3),
+    ("random", 30, 16, 120, (512, 512), 20),
+    ("random", 6, 3, 40, (100, 130), 5),      # W % 4 == 2
+    ("random", 2, 1, 30, (8, 8), 70000),      # more planes than 65535
+])
+def test_stamp_kernel_trouble_spots(dev, name, sigma, B, K, shape, C):
+    """Bit-equal on the train step's two slot sets, with every slot on one
+    tile, with the slot list full and empty, past the staged template, off
+    16-byte rows and past the old limit on planes."""
+    rs = np.random.RandomState(sigma + K)
+    H, W = shape
+    args = [torch.from_numpy(a).to(dev)
+            for a in _stamp_slots(name, rs, B, K, H, W, C)]
+    n = kernels.LAUNCHES["stamp"]
+    got = labelgen.stamp_centers_batched(*args, C, sigma, shape)
+    assert kernels.LAUNCHES["stamp"] == n + 1
+    assert torch.equal(got, labelgen.stamp_centers(*args, C, sigma, shape))
+
+
+def test_stamp_kernel_takes_an_unaligned_output(dev):
+    """The scalar path when W is a multiple of 4 but rows are not: the
+    kernel is handed a view one float into a larger buffer."""
+    rs = np.random.RandomState(5)
+    B, K, C, H, W = 2, 30, 3, 40, 64
+    args = [torch.from_numpy(a).to(dev)
+            for a in _stamp_slots("random", rs, B, K, H, W, C)]
+    iy, ix, sel = (t.contiguous() for t in
+                   labelgen._fold_slots(*args, C, (H, W)))
+    tmpl = labelgen._template(6, dev)
+    buf = torch.full((B * C * H * W + 1,), -1.0, device=dev)
+    out = buf[1:]
+    err = kernels.lib().cl4_stamp(
+        kernels.ptr(iy), kernels.ptr(ix), kernels.ptr(sel), kernels.ptr(tmpl),
+        kernels.ptr(out), B, K, C, H, W, 19, kernels.stream_of(out))
+    assert err == 0
+    want = labelgen.stamp_centers(*args, C, 6, (H, W))
+    assert torch.equal(out.view(B, C, H, W), want) and buf[0] == -1.0
+
+
 def test_stamp_kernel_rejects_what_it_cannot_take(dev):
     z = torch.zeros((1, 2000), device=dev)
     with pytest.raises(ValueError):
         labelgen.stamp_centers_cuda(z > 0, z, z, z.int(), 3, 6, (32, 32))
+    z = torch.zeros((1, 4), device=dev)
+    with pytest.raises(ValueError):
+        labelgen.stamp_centers_cuda(z > 0, z, z, z.int(), 3, -1, (32, 32))
+    with pytest.raises(ValueError):
+        labelgen.stamp_centers_cuda(z > 0, z, z[:, :2], z.int(), 3, 6, (32, 32))
 
 
 @pytest.mark.parametrize("connectivity", [4, 8])
