@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path and phase-2 train step on one
-NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving path and its step-0, phase-1 and
+phase-2 train steps on one NVIDIA card.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -11,8 +11,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      the serving and the training shapes (bit-equal; top-k on CAM-like,
      peak-like and NMS rows, CC at connectivity 4 and 8, run totals on
      uniform and step-like rows and where runs meet the tiles' edges, the
-     stamp on random slots and on the train step's own slot sets), and
-     time kernel, plain version and, where one exists, the single PyTorch
+     stamp on random slots, on the phase-2 step's own slot sets and on the
+     step-0 slots of a synthetic batch), and time kernel, plain version and, where one exists, the single PyTorch
      call computing the same function (CUDA events and device time);
   3. serve 4 requests of VOC-native sizes through Predictor on the
      full-width ResNet-101 model (classes (16, 5), random weights from a
@@ -28,7 +28,19 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      model, PseudoLabeler and PeakGenerator, counting each step's kernel
      launches and the run structure of the key rows the step hands to run
      totals; then one profiled step;
-  6. print the kernels line (JSON) and, last, the ok line (JSON).
+  6. step 0: 2 warm-up and 5 timed steps of the VOC 15-5 base model
+     (classes (16,), ResNet-101 with the instance branch, batch 16 at 512^2,
+     bfloat16, Adam 5e-5), the stamp launched once a step and bit-equal to
+     its plain version on the step's own slots; then one profiled step;
+  7. phase 1: 2 warm-up and 5 timed steps of the use_pseudo program (the
+     step-1 model and the old model without the instance branch,
+     PseudoLabeler, PeakGenerator, PAMR, batch 16 at 512^2, bfloat16, SGD),
+     one step of the warm-up program, no kernel launched; then one profiled
+     step;
+  8. card against CPU: one step 0 and one phase-1 step of a tiny model
+     (backbone (1, 1, 1, 1), batch 2, 64^2, float32, TF32 off) on the card
+     and on the CPU from the same weights, batch and draws;
+  9. print the kernels line (JSON) and, last, the ok line (JSON).
 Without a CUDA device it exits non-zero before printing any result.
 """
 
@@ -50,7 +62,7 @@ from cl4wsis_tpu_torch.ops.instance_postproc import get_ins_map
 from cl4wsis_tpu_torch.ops.peaks import peak_extract_nchw, smoothing
 from cl4wsis_tpu_torch.ops.resize import resize_bilinear
 from cl4wsis_tpu_torch.serve import Predictor
-from cl4wsis_tpu_torch.train import phase2, schedule
+from cl4wsis_tpu_torch.train import phase1, phase2, schedule, step0
 from cl4wsis_tpu_torch.train.state import TrainState
 from cl4wsis_tpu_torch.wss import PeakGenerator, PseudoLabeler
 
@@ -61,8 +73,11 @@ PER_REQUEST = {"cc_multilabel": 2, "topk": 1, "run_totals": 1, "stamp": 0,
 PER_STEP = {"cc_multilabel": 2, "topk": 2, "run_totals": 1, "stamp": 2,
             "cc_binary": 0}
 PER_FACTORY = dict(PER_STEP, topk=1)       # the CAM peaks are outside it
+PER_STEP0 = dict.fromkeys(PER_STEP, 0) | {"stamp": 1}
+PER_PHASE1 = dict.fromkeys(PER_STEP, 0)
 OLD, NEW = 16, 5                           # VOC 15-5, step 1
 B, S = 16, 512                             # batch, crop
+MAX_INST = 50                              # step 0's instance slots
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 KERNEL_INFO = {
     "topk": ("cl4wsis_tpu_torch/csrc/topk.cu",
@@ -579,11 +594,29 @@ def check_kernels(dev, rs):
         cases.append(stamp_case(args, 6, (
             f"(16, {K}) slots, {int(args[0].sum())} valid (the step's {name} "
             f"stamp) -> (16, 20, 512, 512) float32, sigma 6")))
+    # the step-0 step's stamp: the slots of a synthetic batch's instances
+    C0 = OLD - 1
+    batch0 = step0_batches(dev, 1)[0]
+    count, cy, cx, cls = labelgen.batched_instance_stats(
+        batch0["inst"], batch0["seg"], MAX_INST)
+    s0 = (count > 0, cy, cx, cls)
+    e = max_abs_err(labelgen.stamp_centers_cuda(*s0, C0, 6, (S, S)),
+                    labelgen.stamp_centers(*s0, C0, 6, (S, S)))
+    log(f"stamp (16, {MAX_INST}) step-0 slots of a synthetic batch, "
+        f"{int(s0[0].sum())} valid -> (16, 15, 512, 512): max_abs_err {e}")
+    err = max(err, e)
+    step0_case = dict(
+        shape=f"(16, {MAX_INST}) slots, {int(s0[0].sum())} valid (the step-0 "
+              f"stamp of a synthetic batch) -> (16, 15, 512, 512) float32, "
+              f"sigma 6",
+        bound_ms=bound_ms(B * C0 * S * S * 4 + MAX_INST * B * 13),
+        **timings(lambda: labelgen.stamp_centers_cuda(*s0, C0, 6, (S, S)),
+                  lambda: labelgen.stamp_centers(*s0, C0, 6, (S, S))))
     res["stamp"] = dict(
-        max_abs_err=err, cases=cases,
+        max_abs_err=err, cases=cases, step0=step0_case,
         **stamp_case(stamp_args, 6, "(16, 120) slots -> (16, 20, 512, 512) "
                                     "float32, sigma 6"))
-    for r in [res["stamp"], *cases]:
+    for r in [res["stamp"], *cases, step0_case]:
         log(f"stamp {r['shape']}: {r['device_ms']} ms device, {r['ms']} ms "
             f"events, bound {r['bound_ms']:.6f} ms")
 
@@ -971,6 +1004,289 @@ def profile_step(step, state, batch, gen, median_ms):
             f"{e.key[:60]}")
 
 
+def step0_batches(dev, n):
+    """`n` synthetic (16, 512, 512) batches of the 15 base thing classes on
+    the card: image, seg, inst."""
+    return [{k: torch.from_numpy(b[k]).to(dev) for k in ("image", "seg",
+                                                          "inst")}
+            for b in synthetic_batches(B, S, OLD - 1, seed=0, n_batches=n)]
+
+
+def run_steps(what, step, state, batches, gen, per_step):
+    """2 warm-up and 5 timed steps over `batches` in turn, each step's
+    kernel launches held to `per_step`. Returns the metrics of every step,
+    the median of the timed steps (ms) and the launches of all steps."""
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    times, metrics = [], []
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        if i == WARMUP_STEPS:
+            torch.cuda.reset_peak_memory_stats()
+        before = dict(kernels.LAUNCHES)
+        t = time.perf_counter()
+        m = step(state, batches[i % len(batches)], gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        delta = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        if delta != per_step:
+            raise AssertionError(f"{what} step {i}: launches {delta}, "
+                                 f"expected {per_step}")
+        metrics.append({k: float(v) for k, v in m.items()})
+        log(f"{what} step {i} ({'warm-up' if i < WARMUP_STEPS else 'timed'}"
+            f"): {times[-1]:.3f} ms, " +
+            ", ".join(f"{k} {v:.6f}" for k, v in metrics[-1].items()))
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    timed = times[WARMUP_STEPS:]
+    median = float(np.median(timed))
+    log(f"{what} step, batch {B} at {S}x{S}, bf16: median {median:.3f} ms "
+        f"(timed samples {[round(v, 3) for v in timed]}), "
+        f"{B / median * 1e3:.3f} img/s, peak memory {peak:.3f} GiB, "
+        f"launches over {len(times)} steps {launches}")
+    if not all(np.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"a {what} loss is not finite")
+    return metrics, median, launches
+
+
+def moved_groups(before, after, group_fn):
+    """Per learning-rate group: the state-dict tensors that changed."""
+    moved = {}
+    for k, t in before.items():
+        g = group_fn(k)
+        moved[g] = moved.get(g, 0) + int(not torch.equal(t, after[k]))
+    return moved
+
+
+def train_step0(dev):
+    """Phase 6: warm-up and timed step-0 steps (the JAX bench_step0's
+    set-up), the stamp once a step and bit-equal to its plain version on
+    the step's own slots; then a profiled step. Returns the launches."""
+    t0 = time.perf_counter()
+    torch.manual_seed(0)
+    model = make_model((OLD,), "resnet101", 16, S)
+    step = step0.make_step0_train_step(model, sigma=6, max_inst=MAX_INST,
+                                       device="cuda", dtype="bfloat16")
+    state = step0.init_state(model, "adam",
+                             schedule.make_schedule("poly", 5e-5, 10000))
+    batches = step0_batches(dev, 2)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    log(f"step-0 set-up {time.perf_counter() - t0:.1f} s")
+
+    seen = []                      # the first stamp's slots and output
+    real_stamp = labelgen.stamp_centers_batched
+
+    def keeping(*a):
+        out = real_stamp(*a)
+        if not seen:
+            seen.append((a, out))
+        return out
+
+    labelgen.stamp_centers_batched = keeping
+    try:
+        metrics, median, launches = run_steps("step-0", step, state, batches,
+                                              gen, PER_STEP0)
+    finally:
+        labelgen.stamp_centers_batched = real_stamp
+    args, out = seen[0]
+    e = max_abs_err(out, labelgen.stamp_centers(*args))
+    log(f"step-0 step's own stamp, ({B}, {MAX_INST}) slots, "
+        f"{int(args[0].sum())} valid -> {tuple(out.shape)}: kernel against "
+        f"plain max_abs_err {e}")
+    if e != 0.0:
+        raise AssertionError("the step-0 stamp disagrees with its plain "
+                             "version on the step's own slots")
+    if not all(m["l_center"] > 0 and m["l_offset"] > 0 for m in metrics):
+        raise AssertionError("a step-0 step had no instance loss")
+    moved = moved_groups(before, model.state_dict(),
+                         schedule.default_group_fn)
+    if min(moved.values()) == 0:
+        raise AssertionError(f"a group did not move: {moved}")
+    log(f"step-0 checks: losses finite, center and offset terms live, "
+        f"tensors moved per group {moved}")
+    profile_step(step, state, batches[0], gen, median)
+    return launches
+
+
+def train_phase1(dev):
+    """Phase 7: warm-up and timed phase-1 steps of the use_pseudo program
+    and one step of the warm-up program (the JAX bench_phase1's set-up),
+    no kernel launched; then a profiled step. Returns the launches."""
+    t0 = time.perf_counter()
+    torch.manual_seed(0)
+    model = make_model((OLD, NEW), "resnet101", 16, S, branch="none")
+    model_old = make_model((OLD,), "resnet101", 16, S, branch="none")
+    pl = PseudoLabeler(OLD + NEW)
+    pg = PeakGenerator(OLD + NEW - 1, OLD - 1)
+    net = torch.nn.ModuleDict(dict(model=model, pseudolabeler=pl,
+                                   peakgenerator=pg))
+    kw = dict(device="cuda", dtype="bfloat16")
+    step = phase1.make_phase1_train_step(model, model_old, pl, pg, OLD,
+                                         use_pseudo=True, **kw)
+    warm = phase1.make_phase1_train_step(model, model_old, pl, pg, OLD,
+                                         use_pseudo=False, **kw)
+    opt = schedule.make_optimizer(
+        net, "sgd", group_scale={"body": 1.0, "seg": 10.0, "pseudo": 10.0},
+        group_fn=phase1.phase1_group_fn, momentum=0.9)
+    state = TrainState(net, opt, schedule.make_schedule("poly", 1e-3, 10000))
+    batches = [{"image": torch.from_numpy(b["image"]).to(dev),
+                "l1h": torch.from_numpy(b["l1h"][:, 1:].copy()).to(dev)}
+               for b in synthetic_batches(B, S, OLD + NEW - 1, seed=0,
+                                          n_batches=2)]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    old_before = {k: v.clone() for k, v in model_old.state_dict().items()}
+    log(f"phase-1 set-up {time.perf_counter() - t0:.1f} s")
+
+    metrics, median, launches = run_steps("phase-1", step, state, batches,
+                                          gen, PER_PHASE1)
+    kernels.reset_launches()
+    t = time.perf_counter()
+    m = warm(state, batches[0], gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    m = {k: float(v) for k, v in m.items()}
+    log(f"phase-1 warm-up program (use_pseudo=False), one step: {ms:.3f} ms,"
+        f" " + ", ".join(f"{k} {v:.6f}" for k, v in m.items()) +
+        f", launches {dict(kernels.LAUNCHES)}")
+    if dict(kernels.LAUNCHES) != PER_PHASE1 or not all(
+            np.isfinite(v) for v in m.values()):
+        raise AssertionError("the phase-1 warm-up program launched a kernel "
+                             "or gave a loss that is not finite")
+    if m["l_seg"] != 0.0 or not all(mt["l_seg"] > 0 for mt in metrics):
+        raise AssertionError("the pseudo-GT seg loss is not live in exactly "
+                             "the use_pseudo program")
+    moved = moved_groups(before, net.state_dict(), phase1.phase1_group_fn)
+    if min(moved.values()) == 0:
+        raise AssertionError(f"a group did not move: {moved}")
+    if not all(torch.equal(v, model_old.state_dict()[k])
+               for k, v in old_before.items()):
+        raise AssertionError("the old model changed")
+    log(f"phase-1 checks: losses finite, l_seg live only with use_pseudo, "
+        f"tensors moved per group {moved}, the old model unchanged")
+    profile_step(step, state, batches[0], gen, median)
+    return launches
+
+
+class FixedDropout(torch.nn.Module):
+    """Dropout with a given keep mask, on whatever device the input is."""
+
+    def __init__(self, keep):
+        super().__init__()
+        self.keep = keep
+
+    def forward(self, x, generator=None):
+        return torch.where(self.keep.to(x.device), x / 0.5, 0.0)
+
+
+TINY = (1, 1, 1, 1)
+# card against CPU, float32 with TF32 off, at phase 2's learning rate. The
+# update is held per parameter tensor: the distance between the card's and
+# the CPU's update, less the tensor's own float32 rounding, over the CPU's
+# update (update_reading). A detached loss term reads 0.3 to 1 in the
+# CPU tests against JAX (tests/test_torch_step0.py, test_torch_phase1.py).
+CPU_TOL = {"loss (relative)": 2e-4, "parameter updates (relative)": 0.05,
+           "BN statistics": 5e-5, "head.red_bn statistics": 1e-3}
+TINY_LR = 1e-4
+
+
+def update_reading(before, cpu, card):
+    """||card update - CPU update|| less the float32 spacing of the CPU's
+    result, over ||CPU update|| (0, or inf where the CPU's update is 0)."""
+    d_cpu = cpu.double() - before.double()
+    err = float((card.double() - before.double() - d_cpu).norm())
+    floor = float(np.linalg.norm(
+        np.spacing(np.abs(cpu.float().numpy())).astype(np.float64)))
+    ref = float(d_cpu.norm())
+    return (max(err - floor, 0.0) / ref if ref > 0 else
+            0.0 if err <= floor else float("inf"))
+
+
+def tiny_step0(dev):
+    torch.manual_seed(0)
+    model = make_model((3,), "resnet101", 16, 64, backbone_structure=TINY)
+    keep = torch.rand((2, 256, 4, 4),
+                      generator=torch.Generator().manual_seed(1)) >= 0.5
+    model.decoder.instance_decoder.aspp.project_drop = FixedDropout(keep)
+    step = step0.make_step0_train_step(model, device=dev)
+    state = step0.init_state(model, "sgd",
+                             schedule.make_schedule("poly", TINY_LR, 100))
+    b = next(synthetic_batches(2, 64, 2, seed=4))
+    batch = {k: torch.from_numpy(b[k]) for k in ("image", "seg", "inst")}
+    return model, lambda: step(state, batch)
+
+
+def tiny_phase1(dev):
+    torch.manual_seed(0)
+    model = make_model((3, 2), "resnet101", 16, 64, branch="none",
+                       backbone_structure=TINY)
+    model_old = make_model((3,), "resnet101", 16, 64, branch="none",
+                           backbone_structure=TINY)
+    pl, pg = PseudoLabeler(5), PeakGenerator(4, 2)
+    net = torch.nn.ModuleDict(dict(model=model, pseudolabeler=pl,
+                                   peakgenerator=pg))
+    step = phase1.make_phase1_train_step(model, model_old, pl, pg, 3,
+                                         use_pseudo=True, device=dev)
+    opt = schedule.make_optimizer(
+        net, "sgd", group_scale={"body": 1.0, "seg": 10.0, "pseudo": 10.0},
+        group_fn=phase1.phase1_group_fn)
+    state = TrainState(net, opt,
+                       schedule.make_schedule("poly", TINY_LR, 100))
+    b = next(synthetic_batches(2, 64, 4, seed=6))
+    batch = {"image": torch.from_numpy(b["image"]),
+             "l1h": torch.from_numpy(b["l1h"][:, 1:].copy())}
+    draws = {"angle_k": 1, "labels_neg": torch.randint(
+        0, 3, (2, 4, 4), generator=torch.Generator().manual_seed(2))}
+    return net, lambda: step(state, batch, draws=draws)
+
+
+def card_vs_cpu():
+    """Phase 8: one step of each new train step at a tiny size on the card
+    and on the CPU, from the same weights, batch and draws."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for what, build in (("step 0", tiny_step0), ("phase 1", tiny_phase1)):
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                module, call = build(dev)
+                before = {k: v.detach().cpu().clone() for k, v in
+                          module.state_dict().items()}
+                loss = float(call()["loss"])
+                runs[dev] = (loss, {k: v.detach().cpu() for k, v in
+                                    module.state_dict().items()},
+                             {k for k, _ in module.named_parameters()},
+                             before)
+            (l_cpu, sd_cpu, params, before), (l_card, sd_card, _, _) = \
+                runs["cpu"], runs["cuda"]
+            err = {"loss (relative)": abs(l_card - l_cpu) / abs(l_cpu)}
+            worst = {}
+            for k, t in sd_cpu.items():
+                if k in params:
+                    kind = "parameter updates (relative)"
+                    e = update_reading(before[k], t, sd_card[k])
+                else:
+                    kind = ("head.red_bn statistics" if ".head.red_bn." in
+                            "." + k else "BN statistics")
+                    e = float((sd_card[k].float() - t.float()).abs().max())
+                if e >= err.get(kind, -1.0):
+                    err[kind], worst[kind] = e, k
+            log(f"card against CPU, {what} (SGD at {TINY_LR}): loss "
+                f"{l_cpu:.8f} (CPU) / {l_card:.8f} (card); " + "; ".join(
+                    f"{k} {v:.3e} (tolerance {CPU_TOL[k]:.0e}"
+                    f"{', ' + worst[k] if k in worst else ''})"
+                    for k, v in err.items()))
+            over = [k for k, v in err.items() if not v <= CPU_TOL[k]]
+            if over:
+                raise AssertionError(f"card against CPU, {what}: {over} above "
+                                     f"the tolerance")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -994,6 +1310,9 @@ def main() -> int:
     painted(dev, rs)
     painted_factory(dev, rs)
     train_launches = train(dev)
+    step0_launches = train_step0(dev)
+    phase1_launches = train_phase1(dev)
+    card_vs_cpu()
 
     line = []
     for name, r in res.items():
@@ -1002,19 +1321,25 @@ def main() -> int:
             path, launches = None, check_launches[name]
         else:
             path, launches = "phase-2 train step", train_launches[name]
-            if launches < 1 or (PER_REQUEST[name] and serve_launches[name] < 1):
+            if launches < 1 or (PER_REQUEST[name] and serve_launches[name] < 1
+                                ) or (PER_STEP0[name] and
+                                      step0_launches[name] < 1):
                 raise AssertionError(f"kernel {name} was not launched on its "
                                      f"path")
+            if PER_STEP0[name]:
+                path += ", step-0 train step"
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "path": path, "launches": launches,
                      "launches_serving": serve_launches[name],
+                     "launches_step0": step0_launches[name],
+                     "launches_phase1": phase1_launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": "bytes",
                      "library_ms": r["library_ms"],
                      "library_device_ms": r["library_device_ms"],
                      "shape": r["shape"], "serving": r.get("serving"),
-                     "cases": r.get("cases"),
+                     "cases": r.get("cases"), "step0": r.get("step0"),
                      "connectivity_4": r.get("connectivity_4")})
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {

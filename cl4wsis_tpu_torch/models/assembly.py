@@ -67,16 +67,18 @@ class CL4WSISModel(nn.Module):
     def tot_classes(self) -> int:
         return sum(self.classes)
 
-    def forward(self, x: torch.Tensor, interpolate: bool = True
+    def forward(self, x: torch.Tensor, interpolate: bool = True,
+                generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
         """x: (B, 3, H, W) normalised images -> dict of NCHW predictions:
         seg (C+1 logits), and with the instance branch center (C) and
         offset (2); at the network's strides (seg at the output stride,
-        center and offset at 1/4) unless `interpolate`."""
+        center and offset at 1/4) unless `interpolate`. In train mode the
+        decoder's dropout draws from `generator`."""
         features = self.body(x)
         pred = {"seg": self.cls(self.head(features["res5"]))}
         if self.has_instance:
-            pred.update(self.forward_instance(features))
+            pred.update(self.forward_instance(features, generator))
         return _upsample(pred, x.shape[2:]) if interpolate else pred
 
     def forward_features(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:

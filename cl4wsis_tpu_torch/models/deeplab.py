@@ -50,9 +50,10 @@ class DeepLabV3Head(nn.Module):
         return self.red_bn(out)
 
     def _pool(self, x: torch.Tensor) -> torch.Tensor:
-        """Eval pooling: a pooling_size window average, stride 1, padded
-        back to H x W by edge replication with the extra pixel after."""
-        if self.pooling_size is None:
+        """Train pooling: the global mean. Eval pooling: a pooling_size
+        window average, stride 1, padded back to H x W by edge replication
+        with the extra pixel after."""
+        if self.training or self.pooling_size is None:
             return x.mean(dim=(2, 3), keepdim=True)
         H, W = x.shape[2:]
         kh, kw = min(self.pooling_size, H), min(self.pooling_size, W)

@@ -1,6 +1,12 @@
-"""Gaussian center stamping (counterpart of ``stamp_centers`` in
-``cl4wsis_tpu/ops/labelgen.py`` and ``stamp_centers_batched`` in
-``cl4wsis_tpu/ops/pallas_stamp.py``).
+"""Center, offset and weight targets, and the gaussian center stamp
+(counterpart of ``cl4wsis_tpu/ops/labelgen.py`` and of
+``stamp_centers_batched`` in ``cl4wsis_tpu/ops/pallas_stamp.py``).
+
+Instance masks carry dense ids 1..K (0 background, 255 ignore). The
+per-instance pixel count and coordinate sums are exact integers; the
+centroid is float32(sum) / float32(max(count, 1)), as the JAX batched
+function computes it, so count, centroid and class equal JAX's bit for
+bit. Offsets gather the centroid by id, with no (B, H*W, K) planes.
 
 Every live slot max-composes exp(-(dx^2 + dy^2) / (2 sigma^2)) inside the
 box |dx|, |dy| <= 3 sigma + 1 around its integer-floored center into its
@@ -28,6 +34,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from cl4wsis_tpu_torch.ops import kernels
 
@@ -126,3 +133,103 @@ def stamp_centers_batched(valid: torch.Tensor, cy: torch.Tensor,
     if not valid.is_cuda:
         return stamp_centers(valid, cy, cx, cls, num_classes, sigma, shape)
     return stamp_centers_cuda(valid, cy, cx, cls, num_classes, sigma, shape)
+
+
+def _slot_sums(inst_masks: torch.Tensor, seg_maps: torch.Tensor,
+               max_inst: int):
+    """(B, H, W) ids and classes -> count, sum of y, sum of x and the
+    largest class (B, max_inst + 1) int64, over the pixels of each id
+    1..max_inst; column 0 gathers the pixels of no slot (background,
+    ignore, ids above max_inst)."""
+    B, H, W = inst_masks.shape
+    K1 = max_inst + 1
+    dev = inst_masks.device
+    ids = inst_masks.long()
+    valid = (ids > 0) & (ids != 255)
+    slot = torch.where(valid & (ids <= max_inst), ids, 0)
+    index = (slot + K1 * torch.arange(B, device=dev)[:, None, None]).view(-1)
+    ys = torch.arange(H, device=dev)[:, None].expand(B, H, W).reshape(-1)
+    xs = torch.arange(W, device=dev)[None, :].expand(B, H, W).reshape(-1)
+    zeros = torch.zeros(B * K1, dtype=torch.int64, device=dev)
+    count = torch.bincount(index, minlength=B * K1)
+    sy = zeros.index_add(0, index, ys)
+    sx = zeros.index_add(0, index, xs)
+    segv = torch.where(valid, seg_maps.long(), 0).view(-1)
+    cls = zeros.scatter_reduce(0, index, segv, "amax", include_self=True)
+    return tuple(t.view(B, K1) for t in (count, sy, sx, cls))
+
+
+def batched_instance_stats(inst_masks: torch.Tensor, seg_maps: torch.Tensor,
+                           max_inst: int):
+    """Per image and instance slot: count (B, K) float32, centroid cy, cx
+    (B, K) float32 and class cls (B, K) int32, the seg class - 1 (0 for an
+    empty slot). Ids above `max_inst` belong to no slot."""
+    count, sy, sx, cls = (t[:, 1:] for t in
+                          _slot_sums(inst_masks, seg_maps, max_inst))
+    den = torch.clamp(count, min=1).float()
+    return (count.float(), sy.float() / den, sx.float() / den,
+            torch.clamp(cls - 1, min=0).to(torch.int32))
+
+
+def _offsets(inst_masks: torch.Tensor, cy: torch.Tensor, cx: torch.Tensor,
+             pid: torch.Tensor):
+    """Offsets (B, 2, H, W), y first, from each valid pixel to the
+    centroid of slot `pid` (B, H, W) of (B, K') centroids, and the weight
+    (B, 1, H, W): 1 at valid pixels, else 0 (and offset 0)."""
+    B, H, W = inst_masks.shape
+    dev = inst_masks.device
+    vf = ((inst_masks > 0) & (inst_masks != 255)).float()
+    flat = pid.view(B, -1)
+    cy_pl = torch.gather(cy, 1, flat).view(B, H, W)
+    cx_pl = torch.gather(cx, 1, flat).view(B, H, W)
+    ys = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
+    xs = torch.arange(W, dtype=torch.float32, device=dev)[None, :]
+    offset = torch.stack([(cy_pl - ys) * vf, (cx_pl - xs) * vf], dim=1)
+    return offset, vf[:, None]
+
+
+def batched_label_generation(seg_maps: torch.Tensor, inst_masks: torch.Tensor,
+                             num_classes: int, sigma: int = 8,
+                             max_inst: int = 50):
+    """The step-0 targets of a batch: center (B, C, H, W), offset
+    (B, 2, H, W) and weight (B, 1, H, W), float32. The centers come from
+    :func:`stamp_centers_batched` (the kernel on a CUDA tensor). An id
+    above `max_inst` reads centroid 0: its offset is (-y, -x), its weight
+    1, as in the JAX batched function."""
+    B, H, W = inst_masks.shape
+    count, cy, cx, cls = batched_instance_stats(inst_masks, seg_maps,
+                                                max_inst)
+    center = stamp_centers_batched(count > 0, cy, cx, cls, num_classes,
+                                   sigma, (H, W))
+    ids = inst_masks.long()
+    pid = torch.where((ids > 0) & (ids <= max_inst), ids, 0)
+    offset, weight = _offsets(inst_masks, F.pad(cy, (1, 0)),
+                              F.pad(cx, (1, 0)), pid)
+    return center, offset, weight
+
+
+def instance_stats(inst_mask: torch.Tensor, seg_map: torch.Tensor,
+                   max_inst: int):
+    """One image's (H, W) ids and classes -> count (K,) float32, cy, cx
+    (K,) float32 and cls (K,) int32. The per-image JAX function sums in
+    float32, which equals these exact sums while they stay below 2^24; it
+    leaves an empty slot's class arbitrary, here it is 0."""
+    count, cy, cx, cls = batched_instance_stats(inst_mask[None],
+                                                seg_map[None], max_inst)
+    return count[0], cy[0], cx[0], cls[0]
+
+
+def label_generation(seg_map: torch.Tensor, inst_mask: torch.Tensor,
+                     num_classes: int, sigma: int = 8, max_inst: int = 50):
+    """One image's targets: center (C, H, W), offset (2, H, W), weight
+    (1, H, W). As in the per-image JAX function, an id above `max_inst`
+    reads the last slot's centroid."""
+    count, cy, cx, cls = instance_stats(inst_mask, seg_map, max_inst)
+    H, W = inst_mask.shape
+    center = stamp_centers_batched((count > 0)[None], cy[None], cx[None],
+                                   cls[None], num_classes, sigma, (H, W))
+    ids = inst_mask.long()[None]
+    pid = torch.clamp(torch.where((ids > 0) & (ids != 255), ids - 1, 0),
+                      max=max_inst - 1)
+    offset, weight = _offsets(inst_mask[None], cy[None], cx[None], pid)
+    return center[0], offset[0], weight[0]

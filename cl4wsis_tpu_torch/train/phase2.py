@@ -34,12 +34,9 @@ from cl4wsis_tpu_torch.ops import labelgen, pseudo_labels, refine
 from cl4wsis_tpu_torch.ops.peaks import peak_extract_nchw, smoothing
 from cl4wsis_tpu_torch.ops.resize import resize_bilinear
 from cl4wsis_tpu_torch.train import losses
-from cl4wsis_tpu_torch.train.state import TrainState
-
-CENTER_LOSS_WEIGHT = 200.0   # train.py:100 of the upstream code
-OFFSET_LOSS_WEIGHT = 0.01    # train.py:101 of the upstream code
-
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+from cl4wsis_tpu_torch.train.losses import (CENTER_LOSS_WEIGHT,
+                                             OFFSET_LOSS_WEIGHT)
+from cl4wsis_tpu_torch.train.state import TrainState, prepare
 
 
 def label_factory(seg_gt: torch.Tensor, cls_label: torch.Tensor,
@@ -111,25 +108,14 @@ def make_phase2_train_step(model: torch.nn.Module,
     the metrics: loss, l_center, l_offset, pseudo_weight_px and
     label_truncated, as tensors on the device.
     """
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("phase-2 step: no CUDA device is available; pass "
-                           "device='cpu' to run on the CPU")
-    autocast_dtype = _DTYPES[dtype]
+    device, fmt, autocast = prepare(
+        (model, model_old, pseudolabeler, peakgenerator), device, dtype)
     n_things = model.tot_classes - 1
     old_things = old_classes - 1
-    fmt = (torch.channels_last if device.type == "cuda"
-           else torch.contiguous_format)
-    for m in (model, model_old, pseudolabeler, peakgenerator):
-        m.to(device=device, memory_format=fmt)
     factory_kw = dict(num_classes=n_things, first_class=old_things,
                       sigma=sigma, refine_thresh=refine_thresh,
                       nms_kernel=nms_kernel, beta=beta, max_ctr=max_ctr,
                       max_cluster=max_cluster, max_comp=max_comp)
-
-    def autocast():
-        return torch.autocast(device.type, dtype=torch.bfloat16,
-                              enabled=autocast_dtype == torch.bfloat16)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None

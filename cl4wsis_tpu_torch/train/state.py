@@ -2,11 +2,12 @@
 ``cl4wsis_tpu/train/state.py``): a small dataclass. PyTorch keeps the
 parameters and BN statistics in the model and the optimizer state in the
 optimizer, so the state is those two objects, the schedule and the step
-count."""
+count. Also the set-up every train step builder shares."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterable
 
 import torch
 
@@ -27,3 +28,25 @@ class TrainState:
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         self.step += 1
+
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def prepare(modules: Iterable[torch.nn.Module], device: str, dtype: str):
+    """Move `modules` to `device` (channels-last on a card) and return
+    (device, memory format, autocast factory). Without a card, asking for
+    "cuda" raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("train step: no CUDA device is available; pass "
+                           "device='cpu' to run on the CPU")
+    bf16 = DTYPES[dtype] == torch.bfloat16
+    fmt = (torch.channels_last if device.type == "cuda"
+           else torch.contiguous_format)
+    for m in modules:
+        m.to(device=device, memory_format=fmt)
+
+    def autocast():
+        return torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16)
+    return device, fmt, autocast

@@ -396,3 +396,31 @@ def test_cc_kernels_trouble_spots(dev, name, connectivity):
                        cc.cc_multilabel_plain(m, connectivity))
     assert torch.equal(cc.connected_components(m > 0, connectivity),
                        cc.cc_binary_plain(m > 0, connectivity))
+
+
+@pytest.mark.parametrize("max_inst", [50, 6])
+def test_step0_targets_on_the_card_equal_the_cpu(dev, max_inst):
+    """batched_label_generation on the card (one stamp launch) against the
+    same call on the CPU (the plain stamp): the slot statistics, offsets
+    and weights exactly, the centers bit for bit against the plain stamp
+    on the card's own slots and within an ulp of the CPU's exp."""
+    from cl4wsis_tpu_torch.data.synthetic import synthetic_batches
+    b = next(synthetic_batches(4, 128, 15, seed=max_inst))
+    seg, inst = torch.from_numpy(b["seg"]), torch.from_numpy(b["inst"])
+    inst[:, :3, :5] = 255
+    inst[0, 60:70, 60:70] = 9                       # above max_inst = 6
+    n = kernels.LAUNCHES["stamp"]
+    got = labelgen.batched_label_generation(seg.to(dev), inst.to(dev), 15, 6,
+                                            max_inst)
+    assert kernels.LAUNCHES["stamp"] == n + 1
+    want = labelgen.batched_label_generation(seg, inst, 15, 6, max_inst)
+    stats = labelgen.batched_instance_stats(inst.to(dev), seg.to(dev),
+                                            max_inst)
+    for g, w in zip(stats, labelgen.batched_instance_stats(inst, seg,
+                                                           max_inst)):
+        assert torch.equal(g.cpu(), w)
+    assert torch.equal(got[0], labelgen.stamp_centers(
+        stats[0] > 0, *stats[1:], 15, 6, (128, 128)))
+    assert (got[0].cpu() - want[0]).abs().max() <= 1e-6
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[2].cpu(), want[2])
