@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path and its step-0, phase-1 and
-phase-2 train steps on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving path, its step-0, phase-1 and
+phase-2 train steps, the CLI chain of the three and validation on one
+NVIDIA card.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -37,24 +38,42 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      PseudoLabeler, PeakGenerator, PAMR, batch 16 at 512^2, bfloat16, SGD),
      one step of the warm-up program, no kernel launched; then one profiled
      step;
-  8. card against CPU: one step 0 and one phase-1 step of a tiny model
-     (backbone (1, 1, 1, 1), batch 2, 64^2, float32, TF32 off) on the card
-     and on the CPU from the same weights, batch and draws;
-  9. print the kernels line (JSON) and, last, the ok line (JSON).
+  8. chain: the CLI (cl4wsis_tpu_torch.cli.main.main) three times in this
+     process, step 0 -> step 1 phase 1 -> step 1 phase 2, VOC 15-5,
+     ResNet-101, batch 16 at 512^2, bfloat16, 4 synthetic batches an
+     epoch, checkpoints in a temporary directory removed afterwards; each
+     checkpoint written, phase 2's body and seg equal to the phase-1
+     checkpoint's and its old model to step 0's, bit for bit; the kernel
+     launches of each run held to its steps;
+  9. validate: with the phase-2 trainer's model, validate_instances over 8
+     painted samples at VOC-native sizes, flip off and on, through the
+     kernels and through the plain versions (equal results), and
+     validate_semseg in the DeeplabV3 and the phase-1 CAM modes;
+ 10. card against CPU: one step 0 and one phase-1 step of a tiny model
+     (backbone (1, 1, 1, 1), 64^2, float32, TF32 off; batch 2 for step 0,
+     4 for phase 1) on the card and on the CPU from the same weights,
+     batch and draws;
+ 11. print the kernels line (JSON) and, last, the ok line (JSON).
 Without a CUDA device it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import gc
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from cl4wsis_tpu_torch.cl.ckpt import load_checkpoint
+from cl4wsis_tpu_torch.cli import main as cli
 from cl4wsis_tpu_torch.data.synthetic import synthetic_batches
 from cl4wsis_tpu_torch.models import make_model
 from cl4wsis_tpu_torch.ops import cc, kernels, labelgen, segsort, topk
@@ -63,6 +82,7 @@ from cl4wsis_tpu_torch.ops.peaks import peak_extract_nchw, smoothing
 from cl4wsis_tpu_torch.ops.resize import resize_bilinear
 from cl4wsis_tpu_torch.serve import Predictor
 from cl4wsis_tpu_torch.train import phase1, phase2, schedule, step0
+from cl4wsis_tpu_torch.train.eval import validate_instances, validate_semseg
 from cl4wsis_tpu_torch.train.state import TrainState
 from cl4wsis_tpu_torch.wss import PeakGenerator, PseudoLabeler
 
@@ -1168,6 +1188,240 @@ def train_phase1(dev):
     return launches
 
 
+CHAIN_COMMON = ["--synthetic", "--dataset", "voc", "--task", "15-5",
+                "--batch_size", str(B), "--crop_size", str(S), "--dtype",
+                "bfloat16", "--epochs", "1", "--device", "cuda"]
+CHAIN_RUNS = {
+    "step 0": ["--step", "0", "--name", "exp", "--bce", "--optim", "adam",
+               "--lr", "5e-5"],
+    "phase 1": ["--step", "1", "--name", "exp_p1", "--weakly", "--phase",
+                "1", "--optim", "sgd", "--lr", "1e-3", "--lr_policy",
+                "warmup", "--loss_de", "1", "--affinity", "--pseudo_ep",
+                "0"],
+    "phase 2": ["--step", "1", "--name", "exp_p2", "--weakly", "--phase",
+                "2", "--optim", "adam", "--lr", "5e-5"],
+}
+CHAIN_PER_STEP = {"step 0": PER_STEP0, "phase 1": PER_PHASE1,
+                  "phase 2": PER_STEP}
+
+
+class ChainRecorder:
+    """Given to cli.main as `on_trainer`: keeps every trainer the CLI
+    builds, its epoch metrics and the times of its checkpoint saves and
+    loads (each ending in a synchronize)."""
+
+    def __init__(self):
+        self.made = []
+
+    def __call__(self, trainer):
+        trainer.times, trainer.epochs = {}, []
+
+        def timed(name, method):
+            def run(*a):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = method(*a)
+                torch.cuda.synchronize()
+                trainer.times[name] = time.perf_counter() - t
+                return out
+            return run
+
+        for name in ("save", "load_step_ckpt", "load_seg_ckpt"):
+            setattr(trainer, name, timed(name, getattr(trainer, name)))
+        train_epoch = trainer.train_epoch
+
+        def recorded_epoch(*a, **kw):
+            trainer.epochs.append(train_epoch(*a, **kw))
+            return trainer.epochs[-1]
+        trainer.train_epoch = recorded_epoch
+        self.made.append(trainer)
+
+
+def chain(root):
+    """Phase 8: the CLI chain at full width; returns the launches of each
+    run and the phase-2 trainer."""
+    step0_ckpt = os.path.join(root, "ck", "step", "voc-15-5-ov", "exp_0")
+    p1_ckpt = os.path.join(root, "ck", "step", "voc-15-5-ov", "exp_p1_1")
+    extra = {"phase 1": ["--step_ckpt", step0_ckpt],
+             "phase 2": ["--step_ckpt", step0_ckpt, "--seg_ckpt", p1_ckpt]}
+    launches = {}
+    rec = ChainRecorder()
+    for run, argv in CHAIN_RUNS.items():
+        argv = CHAIN_COMMON + argv + extra.get(run, []) + [
+            "--checkpoint", os.path.join(root, "ck"), "--visualize",
+            "false", "--profile_dir",
+            os.path.join(root, "trace", run.replace(" ", ""))]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t = time.perf_counter()
+        if cli.main(argv, on_trainer=rec) != 0:
+            raise AssertionError(f"chain {run}: main() failed")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches[run] = dict(kernels.LAUNCHES)
+        tr = rec.made[-1]
+        m = tr.epochs[0]
+        n = m["n_batches"]
+        want = {k: v * n for k, v in CHAIN_PER_STEP[run].items()}
+        if launches[run] != want:
+            raise AssertionError(f"chain {run}: launches "
+                                 f"{launches[run]}, expected {want}")
+        path = tr.default_ckpt_path()
+        if not os.path.exists(path):
+            raise AssertionError(f"chain {run}: no checkpoint {path}")
+        steps = [round(v * 1e3, 3) for v in tr.step_timer.times]
+        log(f"chain {run}: main() {wall:.3f} s, epoch {n} batches "
+            f"{m['epoch_time_s']:.3f} s, loss {m['loss']:.6f}, step times "
+            f"ms {steps} (steps 2-3 under torch.profiler), checkpoint "
+            f"{os.path.getsize(path) / 2 ** 30:.3f} GiB, " +
+            ", ".join(f"{k} {v:.3f} s" for k, v in tr.times.items()) +
+            f", launches {launches[run]}")
+        if run == "phase 2":
+            log(f"chain phase 2 epoch means: pseudo_weight_px "
+                f"{m['pseudo_weight_px']:.1f}, label_truncated "
+                f"{m['label_truncated']:.2f}, l_center "
+                f"{m['l_center']:.6f}, l_offset {m['l_offset']:.6f}")
+    t2 = rec.made[-1]
+    rec.made.clear()            # the step-0 and phase-1 trainers go
+
+    # checkpoint identities, bit for bit
+    p1 = load_checkpoint(p1_ckpt)["model"]
+    s0 = load_checkpoint(step0_ckpt)["model"]
+    sd = t2.model.state_dict()
+    frozen = [k for k in p1 if schedule.default_group_fn(k) in ("body", "seg")]
+    bad = [k for k in frozen if not torch.equal(sd[k].cpu(), p1[k])]
+    old = t2.model_old.state_dict()
+    bad += [k for k in old if not torch.equal(old[k].cpu(), s0[k])]
+    if bad or set(frozen) != {k for k in sd if schedule.default_group_fn(k)
+                              in ("body", "seg")}:
+        raise AssertionError(f"chain: {len(bad)} tensors differ from their "
+                             f"checkpoint ({bad[:4]}), {len(frozen)} checked")
+    log(f"chain checks: 3 checkpoints written; phase 2's {len(frozen)} body "
+        f"and seg tensors equal the phase-1 checkpoint's and the old model's "
+        f"{len(old)} tensors step 0's, bit for bit")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, t2
+
+
+def painted_samples(rs, n=8, n_inst=8):
+    """`n` validation samples at VOC-native sizes: images painted with
+    `n_inst` boxes of painted_scene's instances, coloured by class, their
+    masks and 0-based classes, and the seg map."""
+    out = []
+    for i in range(n):
+        H, W = SERVE_SIZES[i % len(SERVE_SIZES)]
+        _, _, _, insts = painted_scene(H, W, NEW, rs, n_inst=n_inst)
+        img = rs.uniform(0.0, 0.3, (H, W, 3)).astype(np.float32)
+        seg = np.zeros((H, W), np.int64)
+        for c, box in insts:
+            img[box] = [0.2 + 0.15 * c, 0.9 - 0.15 * c, 0.5]
+            seg[box] = OLD + c
+        img = (img - np.array([0.485, 0.456, 0.406], np.float32)) / \
+            np.array([0.229, 0.224, 0.225], np.float32)
+        out.append({"image": img[None].astype(np.float32), "seg": seg,
+                    "gt_masks": np.stack([b for _, b in insts]),
+                    "gt_labels": np.array([OLD - 1 + c for c, _ in insts])})
+    return out
+
+
+def recorded(fn, times, outs):
+    """`fn` that also keeps each call's time (ms, ending in a synchronize)
+    and output."""
+    def run(*a):
+        t = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        outs.append(out)
+        return out
+    return run
+
+
+def same_results(a, b):
+    return (a.keys() == b.keys() and all(
+        np.array_equal(np.asarray(a[k]), np.asarray(b[k]), equal_nan=True)
+        for k in a))
+
+
+def validate(trainer, rs):
+    """Phase 9: validation on the card with the phase-2 trainer's model
+    (left by its epoch with the decoder in train mode), its center heads'
+    biases raised by 0.3 so that NMS finds centers in the maps of random
+    weights (as the CPU serving tests do). The ground truth is the painted
+    boxes plus every second instance the model itself finds without flip,
+    so that AP is not 0 throughout. Returns the kernel launches of the
+    instance validations through the kernels."""
+    with torch.no_grad():
+        for conv in trainer.model.instance_head.classifier.center.cls:
+            conv.bias += 0.3
+    samples = painted_samples(rs)
+    trainer.cfg = dataclasses.replace(trainer.cfg, val_flip=False)
+    fwd = cli.make_instance_forward(trainer)
+    for smp in samples:
+        out = fwd(torch.from_numpy(smp["image"]), smp["gt_masks"].shape[1:])
+        ins, lab = out["ins_map"].cpu().numpy(), out["label"].cpu().numpy()
+        ids = [i for i in np.unique(ins) if i >= 0][::2]
+        smp["gt_masks"] = np.concatenate(
+            [smp["gt_masks"]] + [(ins == i)[None] for i in ids])
+        smp["gt_labels"] = np.concatenate([smp["gt_labels"], lab[ids]])
+    launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    for flip in (False, True):
+        trainer.cfg = dataclasses.replace(trainer.cfg, val_flip=flip)
+        fwd = cli.make_instance_forward(trainer)
+        times, outs, plain_outs = [], [], []
+        kernels.reset_launches()
+        got = validate_instances(recorded(fwd, times, outs), samples)
+        used = dict(kernels.LAUNCHES)
+        want_l = {k: v * len(samples) for k, v in PER_REQUEST.items()}
+        if used != want_l:
+            raise AssertionError(f"validate flip={flip}: launches {used}, "
+                                 f"expected {want_l}")
+        launches = {k: launches[k] + v for k, v in used.items()}
+        with plain_versions():
+            want = validate_instances(recorded(fwd, [], plain_outs), samples)
+        if kernels.LAUNCHES != used:
+            raise AssertionError("the plain validation launched a kernel")
+        score_err = 0.0
+        for o, p in zip(outs, plain_outs):
+            for k in ("ins_map", "label", "valid", "truncated"):
+                if not torch.equal(o[k], p[k]):
+                    raise AssertionError(f"validate flip={flip}: {k} differs "
+                                         f"between the kernel and the plain "
+                                         f"path")
+            score_err = max(score_err, max_abs_err(o["score"], p["score"]))
+        if not same_results(got, want) or score_err > 1e-6:
+            raise AssertionError(f"validate flip={flip}: kernel and plain "
+                                 f"paths differ: {got} / {want}, scores "
+                                 f"{score_err}")
+        if trainer.model.training or not np.isfinite(got["map"]):
+            raise AssertionError(f"validate flip={flip}: bad result {got}")
+        n_valid = [int(o["valid"].sum()) for o in outs]
+        log(f"validate_instances, flip {flip}, {len(samples)} painted images "
+            f"at VOC-native sizes, {sum(len(x['gt_labels']) for x in samples)}"
+            f" ground-truth instances: map {got['map']:.6f}, map50 "
+            f"{got['map50']:.6f}, truncated_centers "
+            f"{got['truncated_centers']}, valid slots an image {n_valid}; "
+            f"kernel and plain paths equal (AP arrays, maps, slots; score "
+            f"max_abs_err {score_err}); median "
+            f"{float(np.median(times)):.3f} ms an image (samples "
+            f"{[round(v, 3) for v in times]}), launches {used}")
+    for mode, build, kw in (
+            ("DeeplabV3 seg", cli.make_classify_seg, {}),
+            ("phase-1 CAM", cli.make_classify_cam,
+             {"old_classes": trainer.old_classes})):
+        times = []
+        res = validate_semseg(recorded(build(trainer), times, []), samples,
+                              trainer.tot_classes, **kw)
+        if res["Total samples"] != len(samples) or not all(
+                np.isfinite(v) for v in res["Agg"]):
+            raise AssertionError(f"validate_semseg {mode}: {res}")
+        log(f"validate_semseg, {mode} mode: mean IoU {res['Mean IoU']:.6f}, "
+            f"mean acc {res['Mean Acc']:.6f}; median "
+            f"{float(np.median(times)):.3f} ms an image")
+    return launches
+
+
 class FixedDropout(torch.nn.Module):
     """Dropout with a given keep mask, on whatever device the input is."""
 
@@ -1216,7 +1470,12 @@ def tiny_step0(dev):
     return model, lambda: step(state, batch)
 
 
-def tiny_phase1(dev):
+def tiny_phase1(dev, image=None):
+    """The tiny phase-1 step at batch 4: at batch 2 the head's train-mode
+    global_pooling_bn normalises each channel over 2 pooled values, some
+    with a variance far under its eps, and the step's update moves by ~5%
+    under 1e-7 input noise (scripts/card_vs_cpu_noise.py). `image`, where
+    given, replaces the batch's images."""
     torch.manual_seed(0)
     model = make_model((3, 2), "resnet101", 16, 64, branch="none",
                        backbone_structure=TINY)
@@ -1232,11 +1491,12 @@ def tiny_phase1(dev):
         group_fn=phase1.phase1_group_fn)
     state = TrainState(net, opt,
                        schedule.make_schedule("poly", TINY_LR, 100))
-    b = next(synthetic_batches(2, 64, 4, seed=6))
-    batch = {"image": torch.from_numpy(b["image"]),
+    b = next(synthetic_batches(4, 64, 4, seed=6))
+    batch = {"image": torch.from_numpy(b["image"] if image is None
+                                       else image),
              "l1h": torch.from_numpy(b["l1h"][:, 1:].copy())}
     draws = {"angle_k": 1, "labels_neg": torch.randint(
-        0, 3, (2, 4, 4), generator=torch.Generator().manual_seed(2))}
+        0, 3, (4, 4, 4), generator=torch.Generator().manual_seed(2))}
     return net, lambda: step(state, batch, draws=draws)
 
 
@@ -1304,6 +1564,7 @@ def main() -> int:
         f"{kernels.library_path().name}")
 
     rs = np.random.RandomState(0)
+    t_phases = time.perf_counter()
     res = check_kernels(dev, rs)
     check_launches = dict(kernels.LAUNCHES)
     serve_launches = serve(dev, rs)
@@ -1312,7 +1573,17 @@ def main() -> int:
     train_launches = train(dev)
     step0_launches = train_step0(dev)
     phase1_launches = train_phase1(dev)
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        chain_launches, trainer = chain(root)
+    log(f"chain phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    validate_launches = validate(trainer, rs)
+    del trainer
+    log(f"validate phase: {time.perf_counter() - t:.1f} s")
     card_vs_cpu()
+    log(f"all phases passed in {time.perf_counter() - t_phases:.1f} s after "
+        f"the kernel build")
 
     line = []
     for name, r in res.items():
@@ -1328,11 +1599,21 @@ def main() -> int:
                                      f"path")
             if PER_STEP0[name]:
                 path += ", step-0 train step"
+            path += ", CLI chain, validation"
+            if chain_launches["phase 2"][name] < 1 or (
+                    PER_STEP0[name] and chain_launches["step 0"][name] < 1
+                    ) or (PER_REQUEST[name] and
+                          validate_launches[name] < 1):
+                raise AssertionError(f"kernel {name} was not launched in "
+                                     f"the chain or in validation")
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "path": path, "launches": launches,
                      "launches_serving": serve_launches[name],
                      "launches_step0": step0_launches[name],
                      "launches_phase1": phase1_launches[name],
+                     "launches_chain": {run: ln[name] for run, ln in
+                                        chain_launches.items()},
+                     "launches_validate": validate_launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": "bytes",

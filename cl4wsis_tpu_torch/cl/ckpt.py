@@ -1,19 +1,163 @@
-"""Weight carry-over from the JAX package (counterpart of
-``cl4wsis_tpu/cl/ckpt.py``, the inverse of its ``convert_torch_cl4wsis``).
+"""Checkpoints, CL-step classifier expansion, the torch iABN weight ingest
+and the weight carry-over from the JAX package (counterpart of
+``cl4wsis_tpu/cl/ckpt.py``).
 
-:func:`convert_jax_variables` turns the JAX model's ``{"params",
-"batch_stats"}`` tree, with numpy arrays as leaves, into a state dict of the
-port's :class:`~cl4wsis_tpu_torch.models.CL4WSISModel`: HWIO kernels become
-OIHW weights and every flax path its upstream torch key.
+Everything works on state dicts in the upstream key layout (``body.*``,
+``head.*``, ``cls.{i}``, ``decoder.instance_decoder.*``,
+``instance_head.classifier.*``):
+
+1. :func:`expand_for_new_step`: previous-step weights into the new step's
+   model. The incremental classifiers are per-step modules, so torch's
+   strict=False load is :func:`tree_merge`; the new ``cls.{n-1}`` and
+   center classifier keep their fresh init or are background-imprinted
+   (:func:`init_balanced_classifier`).
+2. :func:`save_checkpoint` / :func:`load_checkpoint`: ``torch.save`` of a
+   nested dict of state dicts (the JAX package writes orbax checkpoints,
+   which need JAX).
+3. :func:`convert_torch_resnet` / :func:`load_torch_pretrained`: the
+   ImageNet iABN pickles onto ``body.*``.
+4. :func:`convert_jax_variables` turns the JAX model's ``{"params",
+   "batch_stats"}`` tree, with numpy arrays as leaves, into a state dict of
+   the port's :class:`~cl4wsis_tpu_torch.models.CL4WSISModel`: HWIO kernels
+   become OIHW weights and every flax path its upstream torch key (the
+   inverse of the JAX ``convert_torch_cl4wsis``).
 """
 
 from __future__ import annotations
 
+import os
 import re
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+# ---------------------------------------------------------------- merging
+
+
+def tree_merge(base: Any, update: Any) -> Any:
+    """Deep merge `update` into `base` with torch strict=False semantics:
+    keys present in both are overwritten, keys only in base keep their
+    value, keys only in update are IGNORED (e.g. a step-0 instance branch
+    loading into a phase-1 branch-'none' model)."""
+    if isinstance(base, dict) and isinstance(update, dict):
+        out = dict(base)
+        for k, v in update.items():
+            if k in base:
+                out[k] = tree_merge(base[k], v)
+        return out
+    return update
+
+
+def init_balanced_classifier(state: Dict[str, torch.Tensor],
+                             classes: Sequence[int],
+                             prefix: str = "cls.") -> Dict[str, torch.Tensor]:
+    """Background imprinting for the newest step's classifier
+    (upstream ``segmentation_module.py:132-144``): the new weights copy the
+    background row of ``{prefix}0``, the new bias is bkg_bias -
+    log(n_new + 1); ``{prefix}0``'s background bias is shifted to the same
+    value."""
+    new_key = f"{prefix}{len(classes) - 1}"
+    w0 = state[f"{prefix}0.weight"].detach().cpu()  # (Cout, Cin, 1, 1)
+    b0 = state[f"{prefix}0.bias"].detach().cpu().numpy().copy()
+    new_bias_val = b0[0] - float(np.log(classes[-1] + 1))
+    n_new = state[f"{new_key}.weight"].shape[0]
+    out = dict(state)
+    out[f"{new_key}.weight"] = w0[:1].repeat(n_new, 1, 1, 1)
+    out[f"{new_key}.bias"] = torch.full((n_new,), new_bias_val,
+                                        dtype=torch.float32)
+    b0[0] = new_bias_val
+    out[f"{prefix}0.bias"] = torch.from_numpy(b0)
+    return out
+
+
+def expand_for_new_step(new_state: Dict[str, torch.Tensor],
+                        old_state: Dict[str, torch.Tensor],
+                        classes: Sequence[int],
+                        init_balanced: bool = False
+                        ) -> Dict[str, torch.Tensor]:
+    """Previous-step weights into a freshly initialised new-step model's
+    state dict (upstream ``train.py:747-762``)."""
+    state = tree_merge(new_state, old_state)
+    if init_balanced:
+        state = init_balanced_classifier(state, classes)
+        center = "instance_head.classifier.center.cls."
+        if f"{center}0.weight" in state:
+            state = init_balanced_classifier(
+                state, [c - 1 if i == 0 else c for i, c in enumerate(classes)],
+                prefix=center)
+    return state
+
+
+# ---------------------------------------------------------------- file io
+
+def save_checkpoint(path: str, tree: Dict[str, Any]) -> None:
+    """``torch.save`` of a nested dict of state dicts and numbers, written
+    beside `path` and renamed into place, so a reader never finds half a
+    file."""
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(tree, tmp)
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    """A checkpoint of :func:`save_checkpoint`, its tensors on the CPU."""
+    return torch.load(os.path.abspath(path), map_location="cpu",
+                      weights_only=True)
+
+
+def ckpt_path(root: str, dataset: str, task: str, overlap: bool, name: str,
+              step: int) -> str:
+    """Canonical layout (upstream ``run.py:52``):
+    checkpoints/step/{ds}-{task}[-ov]/{name}_{step}."""
+    ov = "-ov" if overlap else ""
+    return os.path.join(root, "step", f"{dataset}-{task}{ov}", f"{name}_{step}")
+
+
+# ------------------------------------------------------- torch iABN ingest
+
+_BN_FIELDS = ("weight", "bias", "running_mean", "running_var")
+
+
+def convert_torch_resnet(state_dict: Dict[str, Any],
+                         abs_bn_weight: bool = True
+                         ) -> Dict[str, torch.Tensor]:
+    """A torch iABN ResNet state dict (the ImageNet pretrained format of
+    upstream ``segmentation_module.py:37-57``) -> the port's ``body.*``
+    keys, float32. A 'module.' prefix is stripped and ``classifier.*``
+    dropped. InPlace-ABN applies |weight| in its forward, so a BN weight
+    ingests as abs(weight) by default."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, val in state_dict.items():
+        if key.startswith("module."):
+            key = key[len("module."):]
+        if key.startswith("classifier."):
+            continue
+        parts = key.split(".")
+        layer, field = parts[-2], parts[-1]
+        val = torch.as_tensor(np.asarray(val, np.float32))
+        if layer.startswith("bn") or layer == "proj_bn":
+            if field not in _BN_FIELDS:
+                continue
+            if field == "weight" and abs_bn_weight:
+                val = val.abs()
+        elif field != "weight":
+            continue
+        out["body." + key] = val
+    return out
+
+
+def load_torch_pretrained(path: str) -> Optional[Dict[str, torch.Tensor]]:
+    """An iABN ImageNet checkpoint as ``body.*`` weights, if present."""
+    if not os.path.exists(path):
+        return None
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    return convert_torch_resnet(blob.get("state_dict", blob))
+
+
+# ------------------------------------------------- carry-over from JAX
 
 _PARAM_FIELDS = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_FIELDS = {"mean": "running_mean", "var": "running_var"}

@@ -36,18 +36,22 @@ class CL4WSISModel(nn.Module):
     classes: per-step class counts, e.g. (16, 5) for VOC 15-5 step 1 (step
     0 includes background). pooling_size: eval-time ASPP window =
     crop // output_stride. backbone_structure overrides the block counts
-    (e.g. (1, 1, 1, 1) for tiny test nets).
+    (e.g. (1, 1, 1, 1) for tiny test nets). detach_instance: ``forward``
+    gives the instance branch detached backbone features, so its loss
+    trains no backbone weight.
     """
 
     def __init__(self, classes: Sequence[int], backbone: str = "resnet101",
                  output_stride: int = 16, pooling_size: Optional[int] = 32,
                  has_instance: bool = True, norm_act: str = "iabn_sync",
-                 backbone_structure: Optional[Sequence[int]] = None):
+                 backbone_structure: Optional[Sequence[int]] = None,
+                 detach_instance: bool = False):
         super().__init__()
         if backbone not in _RESNET_STRUCTURES:
             raise NotImplementedError(f"backbone {backbone!r} is not ported")
         self.classes = tuple(classes)
         self.has_instance = has_instance
+        self.detach_instance = detach_instance
         norm = norm_factory(norm_act)
         structure = tuple(backbone_structure or _RESNET_STRUCTURES[backbone])
         self.body = ResNet(structure, output_stride, norm)
@@ -78,7 +82,9 @@ class CL4WSISModel(nn.Module):
         features = self.body(x)
         pred = {"seg": self.cls(self.head(features["res5"]))}
         if self.has_instance:
-            pred.update(self.forward_instance(features, generator))
+            ins_feats = ({k: v.detach() for k, v in features.items()}
+                         if self.detach_instance else features)
+            pred.update(self.forward_instance(ins_feats, generator))
         return _upsample(pred, x.shape[2:]) if interpolate else pred
 
     def forward_features(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -113,11 +119,13 @@ def _upsample(pred: Dict[str, torch.Tensor], size) -> Dict[str, torch.Tensor]:
 
 def make_model(classes: Sequence[int], backbone: str = "resnet101",
                output_stride: int = 16, crop_size: int = 512,
-               branch: str = "ins", norm_act: str = "iabn_sync",
+               branch: str = "ins", detach_instance: bool = False,
+               norm_act: str = "iabn_sync",
                backbone_structure: Optional[Sequence[int]] = None
                ) -> CL4WSISModel:
     """Factory with the arguments of the JAX ``make_model``."""
     return CL4WSISModel(classes, backbone, output_stride,
                         pooling_size=crop_size // output_stride,
                         has_instance=(branch == "ins"), norm_act=norm_act,
-                        backbone_structure=backbone_structure)
+                        backbone_structure=backbone_structure,
+                        detach_instance=detach_instance)

@@ -4,6 +4,10 @@
 Module names give the upstream keys: ``map_convs.{0-3}``, ``map_bn``,
 ``global_pooling_conv``, ``global_pooling_bn``, ``red_conv``,
 ``pool_red_conv``, ``red_bn``; the classifier's ``{i}``.
+
+The head's convolutions take upstream's explicit init, xavier-normal with
+the leaky-ReLU(0.01) gain, as the JAX head does; the classifier keeps
+torch's default, where the JAX package reaches it with ``--torch_init``.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from cl4wsis_tpu_torch.core.abn import ABN
+
+_XAVIER_LRELU_GAIN = (2.0 / (1.0 + 0.01 ** 2)) ** 0.5  # calculate_gain('leaky_relu', .01)
 
 
 def _conv(cin: int, cout: int, k: int, dilation: int = 1) -> nn.Conv2d:
@@ -41,6 +47,9 @@ class DeepLabV3Head(nn.Module):
         self.red_conv = _conv(hidden_channels * 4, out_channels, 1)
         self.pool_red_conv = _conv(hidden_channels, out_channels, 1)
         self.red_bn = norm(out_channels)
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                nn.init.xavier_normal_(m.weight, _XAVIER_LRELU_GAIN)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = torch.cat([m(x) for m in self.map_convs], dim=1)

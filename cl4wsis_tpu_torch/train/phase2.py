@@ -46,9 +46,11 @@ def label_factory(seg_gt: torch.Tensor, cls_label: torch.Tensor,
                   num_classes: int, first_class: int, sigma: int = 6,
                   refine_thresh: float = 0.3, nms_kernel: int = 41,
                   beta: float = 3.0, max_ctr: int = 16, max_cluster: int = 8,
-                  max_comp: int = 64) -> Dict[str, torch.Tensor]:
+                  max_comp: int = 64,
+                  run_refine: bool = True) -> Dict[str, torch.Tensor]:
     """The batch's pseudo and refined targets: one class-component pass
-    shared by the pseudo labels and the refinement, then both stamps.
+    shared by the pseudo labels and the refinement, then both stamps
+    (without `run_refine`, the pseudo targets alone).
 
     seg_gt (B, H, W); cls_label (B, C); peaks (B, C, K); soft (B, C+1, H,
     W); center (B, C, H, W); offset (B, 2, H, W). Returns pc (B, C, H, W),
@@ -68,6 +70,8 @@ def label_factory(seg_gt: torch.Tensor, cls_label: torch.Tensor,
                                                  size),
            "po": po, "pw": pw, "p_trunc": p_trunc, "n_match": n_match,
            "p_slots": p_slots}
+    if not run_refine:
+        return out
     refined = refine.refine_label_slots(
         soft, center, offset, cls_label, seg_gt, num_classes=num_classes,
         refine_thresh=refine_thresh, nms_kernel=nms_kernel, beta=beta,
@@ -95,6 +99,7 @@ def make_phase2_train_step(model: torch.nn.Module,
                            max_ctr: int = 16,
                            max_cluster: int = 8,
                            max_comp: int = 64,
+                           run_refine: bool = True,
                            device: str = "cuda",
                            dtype: str = "float32") -> Callable:
     """Build the phase-2 step: ``train_step(state, batch, generator)``.
@@ -115,7 +120,8 @@ def make_phase2_train_step(model: torch.nn.Module,
     factory_kw = dict(num_classes=n_things, first_class=old_things,
                       sigma=sigma, refine_thresh=refine_thresh,
                       nms_kernel=nms_kernel, beta=beta, max_ctr=max_ctr,
-                      max_cluster=max_cluster, max_comp=max_comp)
+                      max_cluster=max_cluster, max_comp=max_comp,
+                      run_refine=run_refine)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None
@@ -173,14 +179,15 @@ def make_phase2_train_step(model: torch.nn.Module,
                                 peak_valid, soft, center_out.detach(),
                                 offset_out.detach(), **factory_kw)
             pc, po, pw = fac["pc"], fac["po"], fac["pw"]
-            refined = fac["refined"]
-            label_truncated = (fac["p_trunc"].sum() +
-                               refined["truncated"].sum())
-            pw_sum = torch.maximum(old_fg, pw)
-            pc[:, old_things:] = (pw * pc[:, old_things:] + (1 - pw) *
-                                  refined["center"][:, old_things:])
-            po = pw_sum * po + (1 - pw_sum) * refined["offset"]
-            pw = torch.maximum(pw, refined["weight"])
+            label_truncated = fac["p_trunc"].sum()
+            if run_refine:
+                refined = fac["refined"]
+                label_truncated = label_truncated + refined["truncated"].sum()
+                pw_sum = torch.maximum(old_fg, pw)
+                pc[:, old_things:] = (pw * pc[:, old_things:] + (1 - pw) *
+                                      refined["center"][:, old_things:])
+                po = pw_sum * po + (1 - pw_sum) * refined["offset"]
+                pw = torch.maximum(pw, refined["weight"])
 
             out_old_center = resize_bilinear(out_old["center"].float(), size)
             out_old_offset = resize_bilinear(out_old["offset"].float(), size)

@@ -67,6 +67,9 @@ class PeakGenerator(nn.Module):
         self.alpha = alpha
         new = num_classes - old_classes
         self.extra_conv4 = nn.Conv2d(new, new, 1)
+        # upstream's explicit init, as the JAX module's
+        nn.init.normal_(self.extra_conv4.weight, 0.0, (2.0 / new) ** 0.5)
+        nn.init.zeros_(self.extra_conv4.bias)
 
     def forward(self, x: torch.Tensor, label: Optional[torch.Tensor] = None,
                 size: Optional[Tuple[int, int]] = None

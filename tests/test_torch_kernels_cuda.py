@@ -424,3 +424,35 @@ def test_step0_targets_on_the_card_equal_the_cpu(dev, max_inst):
     assert (got[0].cpu() - want[0]).abs().max() <= 1e-6
     assert torch.equal(got[1].cpu(), want[1])
     assert torch.equal(got[2].cpu(), want[2])
+
+
+def test_tiny_chain_on_the_card_launches_the_kernels(dev, tmp_path):
+    """The CLI's three stages at a tiny size on the card, 4 synthetic
+    batches an epoch: step 0 launches the stamp once a step, phase 1 no
+    kernel, phase 2 CC / top-k / run totals / stamp 2 / 2 / 1 / 2 times a
+    step."""
+    from cl4wsis_tpu_torch.cli.main import main
+    root = str(tmp_path / "ck")
+    common = ["--synthetic", "--tiny", "--dataset", "voc", "--task", "15-5",
+              "--batch_size", "2", "--crop_size", "64", "--dtype",
+              "bfloat16", "--kernel", "15", "--epochs", "1", "--device",
+              "cuda", "--checkpoint", root, "--visualize", "false"]
+    step0 = f"{root}/step/voc-15-5-ov/exp_0"
+    runs = {
+        "step0": ["--step", "0", "--name", "exp", "--bce", "--optim", "adam",
+                  "--lr", "5e-5"],
+        "phase1": ["--step", "1", "--name", "p1", "--weakly", "--phase", "1",
+                   "--optim", "sgd", "--lr", "1e-3", "--lr_policy", "warmup",
+                   "--loss_de", "1", "--affinity", "--pseudo_ep", "0",
+                   "--step_ckpt", step0],
+        "phase2": ["--step", "1", "--name", "p2", "--weakly", "--phase", "2",
+                   "--optim", "adam", "--lr", "5e-5", "--step_ckpt", step0,
+                   "--seg_ckpt", f"{root}/step/voc-15-5-ov/p1_1"]}
+    none = dict.fromkeys(kernels.LAUNCHES, 0)
+    want = {"step0": dict(none, stamp=4), "phase1": none,
+            "phase2": dict(none, cc_multilabel=8, topk=8, run_totals=4,
+                           stamp=8)}
+    for name, argv in runs.items():
+        kernels.reset_launches()
+        assert main(common + argv) == 0
+        assert dict(kernels.LAUNCHES) == want[name], name

@@ -152,7 +152,9 @@ print(len(mods), bad)
 assert len(mods) > 25 and not bad, bad
 assert {"cl4wsis_tpu_torch.train.phase2", "cl4wsis_tpu_torch.ops.labelgen",
         "cl4wsis_tpu_torch.wss.modules",
-        "cl4wsis_tpu_torch.data.synthetic"} <= set(mods), mods
+        "cl4wsis_tpu_torch.data.synthetic", "cl4wsis_tpu_torch.cli.main",
+        "cl4wsis_tpu_torch.train.trainer", "cl4wsis_tpu_torch.metrics.voc_ap",
+        "cl4wsis_tpu_torch.cl.tasks"} <= set(mods), mods
 """
     p = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)

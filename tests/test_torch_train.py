@@ -261,12 +261,14 @@ def test_weighted_losses_match_jax():
 SIGMA, BETA, LR = 6, 3.0, 1e-4
 
 
-@pytest.fixture(scope="module")
-def phase2_runs():
-    """One phase-2 step of the JAX package (compiled once for this file) and
-    of the port from the same weights, batch and dropout mask, with the
-    parameter surgery of tests/test_whole_step_parity.py that makes the
-    label factory fire. SGD, whose update is linear in the gradient."""
+@pytest.fixture(scope="module", params=[True, False],
+                ids=["refine", "no_refine"])
+def phase2_runs(request):
+    """One phase-2 step of the JAX package (compiled once per `run_refine`
+    for this file) and of the port from the same weights, batch and dropout
+    mask, with the parameter surgery of tests/test_whole_step_parity.py
+    that makes the label factory fire; with and without the refinement
+    mix (`run_refine`). SGD, whose update is linear in the gradient."""
     jm, mv = _jax_tiny((OLD, NEW), 0)
     jmo, ov = _jax_tiny((OLD,), 0)
     jpl, jpg = JaxPL(num_classes=TOT), JaxPG(num_classes=TOT - 1,
@@ -301,6 +303,11 @@ def phase2_runs():
     bias = mv["params"]["cls"]["cls_1"]["bias"].copy()
     bias[cstar - (OLD - 1)] += 10.0
     mv["params"]["cls"]["cls_1"]["bias"] = bias
+    # the new-class center biases lifted, so that the refinement pass finds
+    # more centers than its slots hold: its truncation count then tells the
+    # two branches apart
+    center = mv["params"]["instance_head"]["center_cls_1"]
+    center["bias"] = center["bias"] + np.float32(0.5)
 
     _, _, keep = _record_dropout(jm, mv, feats["features"], rng)
 
@@ -313,7 +320,7 @@ def phase2_runs():
     state = JaxState(step=jnp.zeros((), jnp.int32), params=params,
                      batch_stats=stats, opt_state=tx.init(params))
     kw = dict(sigma=SIGMA, pseudo_thresh=pseudo_thresh, refine_thresh=0.3,
-              nms_kernel=NMS_KERNEL, beta=BETA)
+              nms_kernel=NMS_KERNEL, beta=BETA, run_refine=request.param)
     step = jax_phase2(jm, jmo, jpl, jpg, tx, old_classes=OLD, cc_iters=64,
                       **kw)
     batch = {"image": jnp.asarray(images), "l1h": jnp.asarray(l1h)}
@@ -338,14 +345,17 @@ def phase2_runs():
     got = port_step(st, {"image": torch.from_numpy(images),
                          "l1h": torch.from_numpy(l1h)})
     return {"want": want, "got": {k: v.numpy() for k, v in got.items()},
-            "before": before, "after": model.state_dict(), "steps": st.step}
+            "before": before, "after": model.state_dict(), "steps": st.step,
+            "run_refine": request.param}
 
 
 def test_phase2_step_metrics_match_jax(phase2_runs):
     """The factory fired (pseudo weight > 0); loss, l_center, l_offset
-    within rtol 1e-4; label_truncated exact."""
+    within rtol 1e-4; label_truncated exact, and counting the refinement
+    pass's truncated centers only with `run_refine`."""
     got, want = phase2_runs["got"], phase2_runs["want"]["metrics"]
     assert want["pseudo_weight_px"] > 0 and got["pseudo_weight_px"] > 0
+    assert (want["label_truncated"] > 0) == phase2_runs["run_refine"]
     for k in ("loss", "l_center", "l_offset", "pseudo_weight_px"):
         np.testing.assert_allclose(got[k], want[k], rtol=1e-4, err_msg=k)
     np.testing.assert_array_equal(got["label_truncated"],
