@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path, its step-0, phase-1 and
-phase-2 train steps, the CLI chain of the three and validation on one
-NVIDIA card.
+phase-2 train steps, the CLI chain of the three on synthetic and on VOC
+data, validation and serving from a checkpoint on one NVIDIA card.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -49,11 +49,25 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      painted samples at VOC-native sizes, flip off and on, through the
      kernels and through the plain versions (equal results), and
      validate_semseg in the DeeplabV3 and the phase-1 CAM modes;
- 10. card against CPU: one step 0 and one phase-1 step of a tiny model
+ 10. real-data chain: a painted mini-VOC written to a temporary directory
+     (48 train and 16 validation JPEGs at VOC-native sizes, polygon
+     annotations; the mask library built and its RLE held to numpy's on
+     its masks), then the CLI three times as in phase 8 on it with
+     --dataset voc, 4 loader worker processes and validation after each
+     run (instance mAP through the kernels at step 0 and phase 2, the CAM
+     mIoU in phase 1): the launches of each run held to its steps and its
+     validation, the host wait for each batch, phase 2's body and seg
+     equal to phase 1's; the phase-2 model's validation through the
+     kernels and the plain versions (equal); Predictor.from_checkpoint on
+     the phase-2 checkpoint (and on a copy with raised center biases),
+     flip off and on, flip off bit-equal to a Predictor over the
+     trainer's model, every to_coco RLE decoding to its mask; the loader
+     alone at 0 and 4 workers;
+ 11. card against CPU: one step 0 and one phase-1 step of a tiny model
      (backbone (1, 1, 1, 1), 64^2, float32, TF32 off; batch 2 for step 0,
      4 for phase 1) on the card and on the CPU from the same weights,
      batch and draws;
- 11. print the kernels line (JSON) and, last, the ok line (JSON).
+ 12. print the kernels line (JSON) and, last, the ok line (JSON).
 Without a CUDA device it exits non-zero before printing any result.
 """
 
@@ -1422,6 +1436,425 @@ def validate(trainer, rs):
     return launches
 
 
+# ------------------------------------------------------- real-data chain
+
+VOC_SIZES = ((500, 375), (375, 500), (500, 333), (333, 500))   # (W, H)
+N_TRAIN, N_VAL = 48, 16                    # 3 batches of 16; validation
+LOADER_WORKERS = 4
+# each run validates N_VAL images after its epoch: instance mAP through the
+# kernels at step 0 and phase 2, the phase-1 CAM mIoU without them
+VOC_PER_VAL = {"step 0": PER_REQUEST, "phase 1": PER_PHASE1,
+               "phase 2": PER_REQUEST}
+
+
+def palette(c):
+    """Class-keyed RGB fill (tests/test_data.py's painted fixtures)."""
+    return np.array([(c * 37) % 200 + 55, (c * 91) % 200 + 55,
+                     (c * 151) % 200 + 55], np.uint8)
+
+
+def write_mini_voc(root):
+    """A painted mini-VOC, modelled on tests/test_data.py's fixture with
+    rich=True and paint=True, at VOC-native sizes: JPEGs of gray noise
+    cycling 500x375, 375x500, 500x333 and 333x500 (W x H), each with one
+    new class (16-20) and one old class (1-15) painted as class-coloured
+    boxes scaled to the canvas, and their polygons in
+    voc/pascal_sbd_{train,val}.json (the first N_TRAIN images train, the
+    next N_VAL validate). Returns the annotations with their image sizes."""
+    from PIL import Image
+    img_dir = os.path.join(root, "voc", "JPEGImages")
+    os.makedirs(img_dir)
+    rs = np.random.RandomState(0)
+    body = {split: {"images": [], "annotations": [], "categories": [
+        {"id": c, "name": str(c)} for c in range(1, 21)]}
+        for split in ("train", "val")}
+    ann_id = 1
+    for i in range(N_TRAIN + N_VAL):
+        split = "train" if i < N_TRAIN else "val"
+        W, H = VOC_SIZES[i % len(VOC_SIZES)]
+        name = f"img_{i:03d}.jpg"
+        arr = (rs.rand(H, W, 3) * 40 + 100).astype(np.uint8)
+        body[split]["images"].append({"id": i + 1, "file_name": name,
+                                      "height": H, "width": W})
+        sc = min(W, H) // 64
+        ow = 16 * sc
+        x0 = 4 + (3 * i) % (W - 12 - ow)
+        for k, c in enumerate((16 + i % 5, i % 15 + 1)):
+            y0 = H // 2 + 2 if k == 1 else 4
+            oh = (16 + c % 7) * sc
+            poly = [x0, y0, x0 + ow, y0, x0 + ow, y0 + oh, x0, y0 + oh]
+            body[split]["annotations"].append({
+                "id": ann_id, "image_id": i + 1, "category_id": c,
+                "segmentation": [poly], "iscrowd": 0,
+                "bbox": [x0, y0, ow, oh], "area": ow * oh})
+            ann_id += 1
+            block = (palette(c)[None, None, :].astype(np.int32)
+                     + rs.randint(-12, 13, (oh, ow, 3)))
+            arr[y0:y0 + oh, x0:x0 + ow] = np.clip(block, 0, 255)
+        Image.fromarray(arr).save(os.path.join(img_dir, name))
+    for split, b in body.items():
+        with open(os.path.join(root, "voc", f"pascal_sbd_{split}.json"),
+                  "w") as f:
+            json.dump(b, f)
+    sizes = {im["id"]: (im["height"], im["width"])
+             for b in body.values() for im in b["images"]}
+    return [(a, sizes[a["image_id"]]) for b in body.values()
+            for a in b["annotations"]]
+
+
+def check_native(anns):
+    """The mask library builds here, and its rasterised polygons round-trip
+    through its RLE encode and decode and the numpy ones, equally."""
+    from cl4wsis_tpu_torch.data import maskrle, native
+    t = time.perf_counter()
+    path = native.build()
+    native.lib()
+    built = time.perf_counter() - t
+    for ann, (h, w) in anns:
+        m = maskrle.ann_to_mask(ann, h, w)
+        x, y, bw, bh = ann["bbox"]
+        counts = native.rle_encode(m)
+        if (m.shape != (h, w) or m.sum() != bw * bh
+                or not m[y:y + bh, x:x + bw].all()
+                or counts != maskrle.rle_encode(m)["counts"]
+                or not np.array_equal(native.rle_decode(counts, h, w), m)
+                or not np.array_equal(maskrle.rle_decode(counts, h, w), m)):
+            raise AssertionError(f"mask library: annotation {ann['id']} "
+                                 f"does not round-trip")
+    log(f"mask library {path.name} built and loaded in {built:.2f} s; "
+        f"{len(anns)} polygon masks at VOC sizes round-trip through its RLE "
+        f"encode/decode and the numpy ones, equal")
+
+
+class LoaderWatch:
+    """Wraps cli.build_data: keeps the train and validation sets the CLI
+    builds, and the host time each of the trainer's requests for a batch
+    waited on the loader's epoch iterator."""
+
+    def __init__(self):
+        self.real = cli.build_data
+        self.waits, self.train, self.val = [], None, None
+
+    def __call__(self, cfg):
+        loader, val = self.real(cfg)
+        self.train, self.val, self.waits = loader.dataset, val, []
+        epoch = loader.epoch
+        loader.epoch = lambda e: watched(epoch(e), self.waits)
+        return loader, val
+
+
+def watched(batches, waits):
+    """The batches, appending to `waits` the host ms each request for the
+    next one waited."""
+    it = iter(batches)
+    while True:
+        t = time.perf_counter()
+        try:
+            batch = next(it)
+        except StopIteration:
+            return
+        waits.append((time.perf_counter() - t) * 1e3)
+        yield batch
+
+
+class Repeated(torch.utils.data.Dataset):
+    """`k` passes over a dataset indexed by (epoch, index), one epoch."""
+
+    def __init__(self, ds, k):
+        self.ds, self.k = ds, k
+
+    def __len__(self):
+        return self.k * len(self.ds)
+
+    def __getitem__(self, key):
+        epoch, i = key
+        return self.ds[(epoch, i % len(self.ds))]
+
+
+def no_workers_left(what, wait_s=10.0):
+    """Raise if a worker process the loaders started is still alive
+    `wait_s` after they were closed (a terminated worker takes a moment
+    to be reaped)."""
+    import multiprocessing
+    t = time.perf_counter()
+    while multiprocessing.active_children():
+        if time.perf_counter() - t > wait_s:
+            raise AssertionError(f"{what}: loader workers left "
+                                 f"{multiprocessing.active_children()}")
+        time.sleep(0.1)
+
+
+def loader_alone(train, trainer, step_ms):
+    """The loader without the CLI: epochs 0 and 1 of the 3 batches of 16
+    at 0 and LOADER_WORKERS worker processes (pinned, as the CLI on the
+    card builds it). Then a window of 48 batches (12 at 0 workers), six
+    times the workers' prefetch depth of 8: epoch 0 with nothing but the
+    loader (the workers' steady production per batch, after the depth),
+    epoch 1 consumed by the phase-2 trainer's own epoch (`trainer`), whose
+    steps hold the host as the chain's do. Its total wait for batches is
+    read as a share of `step_ms` (the chain's phase-2 step) per batch,
+    with the mean and the largest wait."""
+    from cl4wsis_tpu_torch.data.loader import Loader
+    for workers in (0, LOADER_WORKERS):
+        loader = Loader(train, B, seed=42, num_workers=workers,
+                        pin_memory=True)
+        for epoch in (0, 1):
+            t = time.perf_counter()
+            first, n = None, 0
+            for b in loader.epoch(epoch):
+                n += 1
+                if first is None:
+                    first = time.perf_counter() - t
+                if not b["image"].is_pinned():
+                    raise AssertionError("the loader's batch is not pinned")
+            sec = time.perf_counter() - t
+            log(f"loader alone, {workers} workers (os.cpu_count() "
+                f"{os.cpu_count()}), epoch {epoch}: {n} batches of {B} in "
+                f"{sec:.3f} s, {n / sec:.3f} batches/s, "
+                f"{sec * 1e3 / (n * B):.3f} ms an image, first batch after "
+                f"{first * 1e3:.3f} ms")
+        loader.close()
+        rep = Loader(Repeated(train, 16 if workers else 4), B, seed=42,
+                     num_workers=workers, pin_memory=True)
+        t = time.perf_counter()
+        arrivals = [time.perf_counter() - t for _ in rep.epoch(0)]
+        depth = 2 * workers
+        per_batch = (arrivals[-1] - arrivals[depth]) * 1e3 / (
+            len(arrivals) - 1 - depth)
+        log(f"loader, {workers} workers, {len(arrivals)} batches with no "
+            f"consumer: first after {arrivals[0] * 1e3:.3f} ms, then "
+            f"{per_batch:.3f} ms a batch after the first {depth + 1} "
+            f"({per_batch / B:.3f} ms an image)")
+        waits = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = trainer.train_epoch(1, watched(rep.epoch(1), waits))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        rep.close()
+        no_workers_left(f"loader, {workers} workers")
+        n = len(waits)
+        if m["n_batches"] != n or n != len(rep) or \
+                not np.isfinite(m["loss"]):
+            raise AssertionError(f"loader, {workers} workers, phase-2 "
+                                 f"epoch: {n} batches, {m}")
+        log(f"loader, {workers} workers, feeding a phase-2 epoch of {n} "
+            f"batches: epoch {wall:.3f} ms, {wall / n:.3f} ms a batch "
+            f"against the chain's step {step_ms:.3f} ms; wait for batches "
+            f"total {sum(waits):.3f} ms = {sum(waits) / (n * step_ms):.4f} "
+            f"of {n} steps, mean {np.mean(waits):.3f} ms, largest "
+            f"{max(waits):.3f} ms, first {waits[0]:.3f} ms; waits ms "
+            f"{[round(v, 3) for v in waits]}")
+
+
+def voc_chain(root):
+    """Phase 10: the CLI chain on the painted mini-VOC at full width, with
+    the loader's worker processes, validation after each run, serving
+    from the phase-2 checkpoint, and validation through the kernels
+    against the plain versions. Returns the launches of each run and of
+    the serving from the checkpoint."""
+    anns = write_mini_voc(os.path.join(root, "data"))
+    check_native(anns)
+    step0_ckpt = os.path.join(root, "ck", "step", "voc-15-5-ov", "exp_0")
+    p1_ckpt = os.path.join(root, "ck", "step", "voc-15-5-ov", "exp_p1_1")
+    extra = {"phase 1": ["--step_ckpt", step0_ckpt],
+             "phase 2": ["--step_ckpt", step0_ckpt, "--seg_ckpt", p1_ckpt]}
+    common = [a for a in CHAIN_COMMON if a != "--synthetic"] + [
+        "--data_root", os.path.join(root, "data"), "--crop_size_val",
+        str(S), "--num_workers", str(LOADER_WORKERS), "--pretrained",
+        "false"]
+    launches, steps, rec, watch = {}, {}, ChainRecorder(), LoaderWatch()
+    real_validation, val_ms = cli.run_validation, {}
+
+    def timed_validation(trainer, val, logger, tag):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real_validation(trainer, val, logger, tag)
+        torch.cuda.synchronize()
+        val_ms[tag] = (time.perf_counter() - t) * 1e3 / len(val)
+
+    cli.build_data, cli.run_validation = watch, timed_validation
+    try:
+        for run, argv in CHAIN_RUNS.items():
+            argv = common + argv + extra.get(run, []) + [
+                "--checkpoint", os.path.join(root, "ck"), "--visualize",
+                "false", "--profile_dir",
+                os.path.join(root, "trace", run.replace(" ", ""))]
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t = time.perf_counter()
+            if cli.main(argv, on_trainer=rec) != 0:
+                raise AssertionError(f"voc chain {run}: main() failed")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches[run] = dict(kernels.LAUNCHES)
+            tr, val = rec.made[-1], watch.val
+            m = tr.epochs[0]
+            n = m["n_batches"]
+            want = {k: v * n + VOC_PER_VAL[run][k] * len(val)
+                    for k, v in CHAIN_PER_STEP[run].items()}
+            if n != N_TRAIN // B or len(val) != N_VAL:
+                raise AssertionError(f"voc chain {run}: {n} batches, "
+                                     f"{len(val)} validation images")
+            if launches[run] != want:
+                raise AssertionError(f"voc chain {run}: launches "
+                                     f"{launches[run]}, expected {want}")
+            if not all(np.isfinite(v) for v in m.values()):
+                raise AssertionError(f"voc chain {run}: {m}")
+            path = tr.default_ckpt_path()
+            if not os.path.exists(path):
+                raise AssertionError(f"voc chain {run}: no checkpoint {path}")
+            steps[run] = [round(v * 1e3, 3) for v in tr.step_timer.times]
+            log(f"voc chain {run}: main() {wall:.3f} s, epoch {n} batches "
+                f"{m['epoch_time_s']:.3f} s, loss {m['loss']:.6f}, step "
+                f"times ms {steps[run]} (step 2 under torch.profiler), batch "
+                f"waits ms {[round(v, 3) for v in watch.waits]} (the "
+                f"trainer takes 3 batches before its first step), "
+                f"checkpoint {os.path.getsize(path) / 2 ** 30:.3f} GiB, " +
+                ", ".join(f"{k} {v:.3f} s" for k, v in tr.times.items()) +
+                f", validation {val_ms['test']:.3f} ms an image, launches "
+                f"{launches[run]}")
+            if run == "phase 2":
+                log(f"voc chain phase 2 epoch means: pseudo_weight_px "
+                    f"{m['pseudo_weight_px']:.1f}, label_truncated "
+                    f"{m['label_truncated']:.2f}, l_center "
+                    f"{m['l_center']:.6f}, l_offset {m['l_offset']:.6f}")
+            no_workers_left(f"voc chain {run}")
+    finally:
+        cli.build_data, cli.run_validation = watch.real, real_validation
+    t2, val = rec.made[-1], watch.val
+    rec.made.clear()
+
+    p1 = load_checkpoint(p1_ckpt)["model"]
+    sd = t2.model.state_dict()
+    frozen = [k for k in p1 if schedule.default_group_fn(k) in ("body", "seg")]
+    bad = [k for k in frozen if not torch.equal(sd[k].cpu(), p1[k])]
+    if bad or len(frozen) < 100:
+        raise AssertionError(f"voc chain: {len(bad)} body/seg tensors differ "
+                             f"from the phase-1 checkpoint")
+    log(f"voc chain checks: losses finite, launches as expected, phase 2's "
+        f"{len(frozen)} body and seg tensors equal phase 1's bit for bit")
+
+    samples = [val[i] for i in range(len(val))]
+    validate_voc(t2, samples, "as trained")
+    serve_launches, lifted = serve_from_checkpoint(
+        t2, t2.default_ckpt_path(), root)
+    t2.model.load_state_dict(lifted)
+    validate_voc(t2, samples, "center bias +0.3")
+    # phase 2's step 1: step 0 sets up cuDNN, step 2 runs under the profiler
+    loader_alone(watch.train, t2, steps["phase 2"][1])
+    del t2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, serve_launches
+
+
+def validate_voc(trainer, samples, what):
+    """validate_instances of the trainer's model over the mini-VOC's
+    validation samples (resized to a short side of 512, as the CLI
+    validates), through the kernels and through the plain versions: the
+    slots, scores, maps and AP arrays must agree."""
+    fwd = cli.make_instance_forward(trainer)
+    times, outs, plain_outs = [], [], []
+    kernels.reset_launches()
+    got = validate_instances(recorded(fwd, times, outs), samples)
+    used = dict(kernels.LAUNCHES)
+    if used != {k: v * len(samples) for k, v in PER_REQUEST.items()}:
+        raise AssertionError(f"validate voc ({what}): launches {used}")
+    with plain_versions():
+        want = validate_instances(recorded(fwd, [], plain_outs), samples)
+    score_err = 0.0
+    for o, p in zip(outs, plain_outs):
+        for k in ("ins_map", "label", "valid", "truncated"):
+            if not torch.equal(o[k], p[k]):
+                raise AssertionError(f"validate voc ({what}): {k} differs "
+                                     f"between the kernels and the plain "
+                                     f"versions")
+        score_err = max(score_err, max_abs_err(o["score"], p["score"]))
+    if not same_results(got, want) or score_err > 1e-6 or \
+            not np.isfinite(got["map"]):
+        raise AssertionError(f"validate voc ({what}): {got} / {want}, "
+                             f"scores {score_err}")
+    shapes = sorted({tuple(s["image"].shape[1:3]) for s in samples})
+    log(f"validate voc ({what}): {len(samples)} images at {shapes}: map "
+        f"{got['map']:.6f}, map50 {got['map50']:.6f}, valid slots an image "
+        f"{[int(o['valid'].sum()) for o in outs]}; kernels and plain versions "
+        f"equal (slots, AP arrays; score max_abs_err {score_err}); median "
+        f"{float(np.median(times)):.3f} ms an image (samples "
+        f"{[round(v, 3) for v in times]})")
+
+
+def serve_from_checkpoint(trainer, path, root):
+    """Predictor.from_checkpoint on the phase-2 checkpoint the chain wrote,
+    and on a copy with the center heads' biases raised by 0.3 (so that the
+    random weights give instances): 4 requests each, flip off and on.
+    Flip off must equal a Predictor over the trainer's model with the same
+    state dict bit for bit; every to_coco RLE must decode to its mask.
+    Returns the launches and the raised state dict."""
+    from cl4wsis_tpu_torch.cl.ckpt import save_checkpoint
+    from cl4wsis_tpu_torch.data.maskrle import rle_decode
+    lifted = {k: v.clone() for k, v in load_checkpoint(path)["model"].items()}
+    for k in lifted:
+        if k.startswith("instance_head.classifier.center.cls.") and \
+                k.endswith(".bias"):
+            lifted[k] += 0.3
+    lifted_path = os.path.join(root, "lifted")
+    save_checkpoint(lifted_path, {"model": lifted})
+    rs = np.random.RandomState(5)
+    images = [request_image(h, w, rs) for h, w in SERVE_SIZES]
+    kernels.reset_launches()
+    n_inst = {}
+    for what, ck in (("as written", path), ("center bias +0.3",
+                                            lifted_path)):
+        t = time.perf_counter()
+        served = {flip: Predictor.from_checkpoint(ck, (OLD, NEW),
+                                                  val_flip=flip)
+                  for flip in (False, True)}
+        load_s = time.perf_counter() - t
+        ref = Predictor(trainer.model, load_checkpoint(ck)["model"])
+        for flip, pred in served.items():
+            lat, counts = [], []
+            for img in images:
+                t = time.perf_counter()
+                r = pred(img)
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t) * 1e3)
+                if not flip:
+                    want = ref(img)
+                    for k in ("ins_map", "labels", "scores", "valid", "seg"):
+                        if not np.array_equal(getattr(r, k), getattr(want, k)):
+                            raise AssertionError(
+                                f"from_checkpoint ({what}): {k} differs from "
+                                f"the trainer's model")
+                coco = r.to_coco(image_id=1)
+                for res, inst in zip(coco, r.instances()):
+                    seg = res["segmentation"]
+                    if not np.array_equal(rle_decode(seg["counts"],
+                                                     *seg["size"]),
+                                          inst["mask"].astype(np.uint8)):
+                        raise AssertionError(f"from_checkpoint ({what}): an "
+                                             f"RLE does not decode back")
+                counts.append(len(coco))
+            n_inst[(what, flip)] = sum(counts)
+            log(f"from_checkpoint ({what}), flip {flip}: built in "
+                f"{load_s:.3f} s (both), latency ms "
+                f"{[round(v, 3) for v in lat]}, instances {counts}, every "
+                f"to_coco RLE decodes to its mask" +
+                (", outputs bit-equal to the trainer's model" if not flip
+                 else ""))
+        del served, ref
+    if n_inst[("center bias +0.3", False)] == 0:
+        raise AssertionError("from_checkpoint: no instance to export")
+    launches = dict(kernels.LAUNCHES)
+    want = {k: v * len(images) * 2 * 3 for k, v in PER_REQUEST.items()}
+    if launches != want:        # 2 checkpoints x (flip off, on, reference)
+        raise AssertionError(f"from_checkpoint: launches {launches}, "
+                             f"expected {want}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, lifted
+
+
 class FixedDropout(torch.nn.Module):
     """Dropout with a given keep mask, on whatever device the input is."""
 
@@ -1581,6 +2014,10 @@ def main() -> int:
     validate_launches = validate(trainer, rs)
     del trainer
     log(f"validate phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        voc_launches, ckpt_serve_launches = voc_chain(root)
+    log(f"real-data chain phase: {time.perf_counter() - t:.1f} s")
     card_vs_cpu()
     log(f"all phases passed in {time.perf_counter() - t_phases:.1f} s after "
         f"the kernel build")
@@ -1599,13 +2036,17 @@ def main() -> int:
                                      f"path")
             if PER_STEP0[name]:
                 path += ", step-0 train step"
-            path += ", CLI chain, validation"
-            if chain_launches["phase 2"][name] < 1 or (
-                    PER_STEP0[name] and chain_launches["step 0"][name] < 1
-                    ) or (PER_REQUEST[name] and
-                          validate_launches[name] < 1):
+            path += (", CLI chain (synthetic and VOC), validation, serving "
+                     "from a checkpoint")
+            if any(ln["phase 2"][name] < 1 or (
+                    PER_STEP0[name] and ln["step 0"][name] < 1)
+                   for ln in (chain_launches, voc_launches)) or (
+                    PER_REQUEST[name] and min(
+                        validate_launches[name], ckpt_serve_launches[name],
+                        voc_launches["step 0"][name]) < 1):
                 raise AssertionError(f"kernel {name} was not launched in "
-                                     f"the chain or in validation")
+                                     f"a chain, in validation or in "
+                                     f"serving from a checkpoint")
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "path": path, "launches": launches,
                      "launches_serving": serve_launches[name],
@@ -1614,6 +2055,9 @@ def main() -> int:
                      "launches_chain": {run: ln[name] for run, ln in
                                         chain_launches.items()},
                      "launches_validate": validate_launches[name],
+                     "launches_chain_voc": {run: ln[name] for run, ln in
+                                            voc_launches.items()},
+                     "launches_from_checkpoint": ckpt_serve_launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": "bytes",

@@ -12,17 +12,21 @@ The layout mirrors the JAX package so each counterpart is easy to find:
            and phase-2 train steps, losses, schedules, the grouped
            optimizer and the Trainer
   metrics/ semantic confusion-matrix metrics and instance AP
-  data/    synthetic batches
+  data/    the VOC, COCO and COCO-to-VOC datasets, transforms (numpy and
+           Pillow), COCO masks and RLE through a host C++ library
+           (csrc/maskops.cpp, built with g++), the worker-process loader,
+           and synthetic batches
   cl/      the CL task registry, checkpoints, classifier expansion, the
            iABN ingest and the weight carry-over from the JAX package
   cli/     the configuration and ``python -m cl4wsis_tpu_torch.cli.main``
   utils/   the logger and the step timer
-  serve.py the Predictor
+  serve.py the Predictor (from a checkpoint, with flip, COCO export)
 
 The ported paths are serving, the three train steps (step 0, phase 1,
-phase 2) and the CLI chain over them on synthetic data, with checkpoints
-and validation; the real datasets and multi-GPU runs are not ported yet.
+phase 2) and the CLI chain over them on VOC, COCO, COCO-to-VOC or
+synthetic data, with checkpoints and validation; WideResNet-38 and
+multi-GPU runs are not ported yet.
 The package never imports JAX or the JAX package.
 """
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"

@@ -6,7 +6,9 @@ the device every entry point runs on ("cuda" unless the caller asks for
 "cpu"); the JAX package accepts and ignores it. ``--torch_init`` is
 accepted and changes nothing: the port's layers always draw torch's init
 families, with upstream's explicit inits where upstream sets them, which is
-where the JAX package's ``--torch_init true`` starts.
+where the JAX package's ``--torch_init true`` starts. ``--grain`` selects
+the loader the port always uses, ``data/loader.Loader``, whose
+``--num_workers`` worker processes stand in for grain's.
 
 Re-design of reference ``argparser.py``: the same user-facing flags, with
 ``modify_command_options``'s imperative derivations (``argparser.py:4-34``)
@@ -36,8 +38,8 @@ class Config:
     crop_size_val: int = 512
     synthetic: bool = False         # tiny synthetic data instead of real
     tiny: bool = False              # 1-block-per-stage backbone (debug/CI)
-    grain: bool = False             # grain host pipeline instead of threads
-    num_workers: int = 4            # loader threads / grain worker processes
+    grain: bool = False             # the same loader (it has worker processes)
+    num_workers: int = 4            # loader worker processes (0: in-process)
 
     # model
     model: str = "PanopticDeepLab"  # PanopticDeepLab | DeeplabV3 (semantic-only)

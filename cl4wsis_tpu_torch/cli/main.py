@@ -3,11 +3,13 @@
 
     python -m cl4wsis_tpu_torch.cli.main --dataset voc --task 15-5 --step 0 ...
 
-It runs on the card unless the caller passes ``--device cpu``. Only
-``--synthetic`` data is ported; the real datasets come with ROADMAP queue
-1, item 8. With ``--synthetic`` there is no validation set, so the CLI
-validates nothing; ``run_validation``'s three modes run wherever a
-validation set is given.
+It runs on the card unless the caller passes ``--device cpu``. The data
+is VOC (``--dataset voc``), COCO (``coco``) or COCO-to-VOC (``coco-voc``:
+COCO at step 0, VOC images in the COCO label space after), read from
+``--data_root`` by ``data/loader.Loader`` with ``--num_workers`` worker
+processes, or ``--synthetic`` batches. With ``--synthetic`` there is no
+validation set, so the CLI validates nothing; with real data
+``run_validation`` runs the mode of the stage on the validation set.
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ import torch
 
 from cl4wsis_tpu_torch.cl import tasks
 from cl4wsis_tpu_torch.cli.config import Config, parse_config
+from cl4wsis_tpu_torch.data.coco import make_coco_datasets
+from cl4wsis_tpu_torch.data.loader import Loader, eval_samples
+from cl4wsis_tpu_torch.data.voc import make_voc_datasets
 from cl4wsis_tpu_torch.ops.resize import resize_bilinear
 from cl4wsis_tpu_torch.train.eval import (make_eval_forward, validate_instances,
                                           validate_semseg)
@@ -53,19 +58,46 @@ class SyntheticLoader:
 
 
 def build_data(cfg: Config):
-    """(train loader, validation set or None)."""
+    """(train loader, validation set or None). ``--grain`` selects the same
+    loader: it already runs ``--num_workers`` worker processes, as the JAX
+    package's grain pipeline does."""
     if cfg.synthetic:
         return SyntheticLoader(cfg), None
-    raise NotImplementedError(
-        f"dataset {cfg.dataset!r}: only --synthetic data is ported (the real "
-        "datasets come with ROADMAP queue 1, item 8)")
-
-
-def eval_samples(dataset):
-    """The validation set one sample at a time (batch 1, the reference
-    protocol)."""
-    for i in range(len(dataset)):
-        yield dataset[i]
+    step_dict = tasks.get_task_dict(cfg.dataset, cfg.task, cfg.step)
+    if cfg.dataset == "voc":
+        train, val = make_voc_datasets(cfg.data_root, step_dict, cfg.step,
+                                       cfg.crop_size, cfg.crop_size_val,
+                                       overlap=cfg.overlap,
+                                       masking=not cfg.no_mask,
+                                       pseudo=cfg.pseudo,
+                                       val_on_trainset=cfg.val_on_trainset,
+                                       seed=cfg.seed)
+    elif cfg.dataset == "coco-voc" and cfg.step > 0:
+        # step 1 of coco-voc: VOC images, labels in the COCO id space
+        # (reference VOCasCOCOSegmentationIncremental)
+        train, val = make_voc_datasets(cfg.data_root, step_dict, cfg.step,
+                                       cfg.crop_size, cfg.crop_size_val,
+                                       overlap=cfg.overlap,
+                                       masking=not cfg.no_mask, as_coco=True,
+                                       seed=cfg.seed)
+    elif cfg.dataset in ("coco", "coco-voc"):
+        # reference split-index files (dataset/__init__.py:57-70): the coco
+        # path trains on data/{ds}/{task}[-ov]/train-{step}.npy indices.
+        # The JAX package's rule, kept as it is: "-ov" only for voc, which
+        # never reaches this branch.
+        ov = "-ov" if (cfg.overlap and cfg.dataset == "voc") else ""
+        idx_path = os.path.join(cfg.data_root, cfg.dataset,
+                                f"{cfg.task}{ov}", f"train-{cfg.step}.npy")
+        indices = np.load(idx_path) if os.path.exists(idx_path) else None
+        train, val = make_coco_datasets(cfg.data_root, step_dict, cfg.step,
+                                        cfg.crop_size, cfg.crop_size_val,
+                                        train_indices=indices, seed=cfg.seed)
+    else:
+        raise NotImplementedError(cfg.dataset)
+    loader = Loader(train, cfg.batch_size, seed=cfg.seed,
+                    num_workers=cfg.num_workers,
+                    pin_memory=torch.device(cfg.device).type == "cuda")
+    return loader, val
 
 
 def make_classify_seg(trainer: Trainer):
@@ -228,6 +260,8 @@ def main(argv: Optional[list] = None,
         run_validation(trainer, val, logger, "test")  # run.py:168-182
     finally:
         logger.close()
+        if isinstance(loader, Loader):
+            loader.close()
     print("[done]")
     return 0
 

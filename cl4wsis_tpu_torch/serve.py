@@ -1,9 +1,12 @@
 """Inference API (counterpart of ``cl4wsis_tpu/serve.py``).
 
-    model = make_model((16, 5), "resnet101", 16, 512)
-    predictor = Predictor(model, state_dict)      # on the card, bfloat16
+    predictor = Predictor.from_checkpoint(
+        "checkpoints/step/voc-15-5-ov/OURS_1", classes=(16, 5))
+    # or, from a model and its weights:
+    # predictor = Predictor(make_model((16, 5)), state_dict)
     result = predictor(image_uint8)               # (H, W, 3)
     result.instances()                            # [{label, score, mask}]
+    coco = result.to_coco(image_id=1)             # COCO result dicts (RLE)
 
 The predictor runs on the card unless the caller passes ``device="cpu"``;
 without a card it raises rather than fall back to the CPU.
@@ -12,16 +15,16 @@ without a card it raises rather than fall back to the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
+from cl4wsis_tpu_torch.cl.ckpt import load_checkpoint
+from cl4wsis_tpu_torch.data.maskrle import rle_encode
+from cl4wsis_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from cl4wsis_tpu_torch.models import make_model
 from cl4wsis_tpu_torch.train.eval import make_eval_forward
-
-# ImageNet statistics (the JAX package's data/transforms.py)
-IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
-IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -45,6 +48,20 @@ class InstancePrediction:
                             "score": float(self.scores[s]), "mask": mask})
         return out
 
+    def to_coco(self, image_id: int,
+                category_ids: Optional[Sequence[int]] = None
+                ) -> List[Dict[str, Any]]:
+        """COCO-format results (uncompressed RLE segmentations)."""
+        res = []
+        for inst in self.instances():
+            cat = (category_ids[inst["label"]] if category_ids is not None
+                   else inst["label"] + 1)
+            res.append({"image_id": image_id, "category_id": int(cat),
+                        "score": inst["score"],
+                        "segmentation": rle_encode(
+                            inst["mask"].astype(np.uint8))})
+        return res
+
 
 class Predictor:
     """Bucketed inference over a model and its weights."""
@@ -53,7 +70,8 @@ class Predictor:
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None, *,
                  device: str = "cuda", dtype: str = "bfloat16",
                  val_thresh: float = 0.1, val_kernel: int = 41,
-                 beta: float = 3.0, bucket_multiple: Optional[int] = 64):
+                 beta: float = 3.0, val_flip: bool = False,
+                 bucket_multiple: Optional[int] = 64):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Predictor: no CUDA device is available; pass "
@@ -68,8 +86,26 @@ class Predictor:
         self.n_things = model.tot_classes - 1
         self.forward = make_eval_forward(
             model, self.n_things, device=self.device, dtype=self.dtype,
-            val_thresh=val_thresh, val_kernel=val_kernel, beta=beta,
-            bucket_multiple=bucket_multiple)
+            val_flip=val_flip, val_thresh=val_thresh, val_kernel=val_kernel,
+            beta=beta, bucket_multiple=bucket_multiple)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, classes: Sequence[int],
+                        backbone: str = "resnet101", output_stride: int = 16,
+                        crop_size: int = 512, dtype: str = "bfloat16",
+                        **kw) -> "Predictor":
+        """A predictor over the model of a checkpoint the trainer saved
+        (``cl/ckpt.save_checkpoint``), built by ``make_model`` for
+        `classes`, `backbone` and `output_stride`, with as many blocks a
+        stage as the checkpoint holds (a ``--tiny`` run's too); `kw` go to
+        ``Predictor`` (``device``, ``val_flip``, ...)."""
+        state = load_checkpoint(path)["model"]
+        blocks = tuple(sum(k.startswith(f"body.mod{i}.block") and
+                           k.endswith(".convs.conv1.weight") for k in state)
+                       for i in range(2, 6))
+        model = make_model(classes, backbone, output_stride, crop_size,
+                           backbone_structure=blocks)
+        return cls(model, state, dtype=dtype, **kw)
 
     def __call__(self, image: np.ndarray) -> InstancePrediction:
         """image: (H, W, 3) uint8, or float in [0, 1], or pre-normalized."""

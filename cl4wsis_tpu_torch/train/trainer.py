@@ -24,7 +24,6 @@ import time
 from collections import deque
 from typing import Any, Dict, Optional
 
-import numpy as np
 import torch
 
 from cl4wsis_tpu_torch.cl import tasks
@@ -263,20 +262,22 @@ class Trainer:
         while q:
             yield q.popleft()
 
-    def _device_batch(self, batch_np: Dict[str, np.ndarray]
-                      ) -> Dict[str, torch.Tensor]:
+    def _device_batch(self, batch) -> Dict[str, torch.Tensor]:
+        """The step's inputs of a host batch (numpy arrays, or CPU tensors
+        from the loader) on the step's device. A tensor of the right dtype
+        is taken as it is: one the loader pinned goes to the card without
+        another host copy; anything else is pinned here first."""
         if self.cfg.phase in (1, 2) and not self.supervised_pseudo:
-            host = {"image": np.asarray(batch_np["image"], np.float32),
-                    "l1h": np.asarray(batch_np["l1h"], np.float32)}
+            want = {"image": torch.float32, "l1h": torch.float32}
         else:
-            host = {"image": np.asarray(batch_np["image"], np.float32),
-                    "seg": np.asarray(batch_np["seg"], np.int32),
-                    "inst": np.asarray(batch_np["inst"], np.int32)}
+            want = {"image": torch.float32, "seg": torch.int32,
+                    "inst": torch.int32}
+        host = {k: torch.as_tensor(batch[k]).to(dtype)
+                for k, dtype in want.items()}
         if self.device.type != "cuda":
-            return {k: torch.from_numpy(v) for k, v in host.items()}
-        return {k: torch.from_numpy(v).pin_memory().to(self.device,
-                                                       non_blocking=True)
-                for k, v in host.items()}
+            return host
+        return {k: (v if v.is_pinned() else v.pin_memory()).to(
+                    self.device, non_blocking=True) for k, v in host.items()}
 
     # ------------------------------------------------------- checkpoints
 

@@ -4,7 +4,7 @@ checkouts can be compared in turns within one machine.
 
     python3 scripts/kernel_ab_torch.py                    # this checkout
     python3 scripts/kernel_ab_torch.py --repo OTHER --label parent
-    python3 scripts/kernel_ab_torch.py --only stamp,run_totals
+    python3 scripts/kernel_ab_torch.py --only stamp,serve
 
 `--repo` names the checkout whose `cl4wsis_tpu_torch` package (and CUDA
 sources) are built and timed; the inputs and the timers are those of this
@@ -13,7 +13,10 @@ slots. `--only` keeps the named kernels' cases.
 Every kernel result is first held bit-equal to the plain version. Prints
 one JSON line: the card, the label and, per case, device ms (torch.profiler),
 ms (CUDA events) and device ms by kernel, with `torch.topk` beside the
-top-k cases and `out.zero_()` beside the stamp.
+top-k cases and `out.zero_()` beside the stamp. The `serve` group times
+whole requests instead: `chip_smoke.py`'s 4 serving sizes, 3 rounds,
+through the checkout's `Predictor` at full width (host clock to a
+synchronize), after one warm-up request.
 """
 
 from __future__ import annotations
@@ -23,13 +26,14 @@ import importlib.util
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
 HERE = Path(__file__).resolve().parents[1]
-GROUPS = ("topk", "cc", "run_totals", "stamp")
+GROUPS = ("topk", "cc", "run_totals", "stamp", "serve")
 
 
 def split_ms(smoke, fn, iters=10):
@@ -158,6 +162,23 @@ def main() -> int:
         out["zero_ (16, 20, 512, 512) float32 (a fill, beside the stamp)"] = \
             dict(device_ms=smoke.device_ms(planes.zero_),
                  ms=smoke.time_ms(planes.zero_))
+
+    if "serve" in only:
+        from cl4wsis_tpu_torch.models import make_model
+        from cl4wsis_tpu_torch.serve import Predictor
+        torch.manual_seed(0)
+        pred = Predictor(make_model((16, 5), "resnet101", 16, 512))
+        images = [smoke.request_image(h, w, rs) for h, w in smoke.SERVE_SIZES]
+        pred(images[0])
+        lat = []
+        for img in images * 3:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pred(img)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t) * 1e3)
+        out["serve 4 sizes x 3, ResNet-101, bfloat16"] = dict(
+            median_ms=float(np.median(lat)), latency_ms=lat)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

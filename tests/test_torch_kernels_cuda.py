@@ -456,3 +456,42 @@ def test_tiny_chain_on_the_card_launches_the_kernels(dev, tmp_path):
         kernels.reset_launches()
         assert main(common + argv) == 0
         assert dict(kernels.LAUNCHES) == want[name], name
+
+
+def test_pinned_loader_batches_reach_the_card_without_pinning_again(
+        dev, monkeypatch):
+    """The loader pins its batches on a card machine; Trainer._device_batch
+    copies them to the card without pinning them a second time."""
+    import types
+
+    from cl4wsis_tpu_torch.data.loader import Loader
+    from cl4wsis_tpu_torch.train.trainer import Trainer
+
+    class Samples(torch.utils.data.Dataset):
+        def __len__(self):
+            return 8
+
+        def __getitem__(self, key):
+            epoch, i = key
+            rs = np.random.RandomState(100 * epoch + i)
+            return {"image": rs.rand(16, 16, 3).astype(np.float32),
+                    "seg": rs.randint(0, 3, (16, 16)).astype(np.int32),
+                    "inst": rs.randint(0, 3, (16, 16)).astype(np.int32),
+                    "l1h": rs.rand(20).astype(np.float32), "fname": "x"}
+
+    batch = next(iter(Loader(Samples(), 4, num_workers=0,
+                             pin_memory=True).epoch(0)))
+    assert all(v.is_pinned() for v in batch.values())
+    calls = []
+    real = torch.Tensor.pin_memory
+
+    def counting(self, *a, **kw):
+        calls.append(1)
+        return real(self, *a, **kw)
+    monkeypatch.setattr(torch.Tensor, "pin_memory", counting)
+    like = types.SimpleNamespace(cfg=types.SimpleNamespace(phase=None),
+                                 supervised_pseudo=False, device=dev)
+    got = Trainer._device_batch(like, batch)
+    assert not calls and got.keys() == {"image", "seg", "inst"}
+    for k, v in got.items():
+        assert v.is_cuda and torch.equal(v.cpu(), batch[k])

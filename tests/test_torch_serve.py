@@ -1,5 +1,6 @@
-"""The port's serving path (get_ins_map, Predictor) against the JAX
-package on the CPU, and the port's import and device rules."""
+"""The port's serving path (get_ins_map, Predictor with and without flip,
+from_checkpoint, to_coco) against the JAX package on the CPU, and the
+port's import and device rules."""
 
 import os
 import subprocess
@@ -13,11 +14,15 @@ import torch
 
 from cl4wsis_tpu.models import make_model as jax_make_model
 from cl4wsis_tpu.ops.instance_postproc import get_ins_map as jax_get_ins_map
+from cl4wsis_tpu.serve import InstancePrediction as JaxInstancePrediction
 from cl4wsis_tpu.serve import Predictor as JaxPredictor
 from cl4wsis_tpu_torch.cl.ckpt import convert_jax_variables
+from cl4wsis_tpu_torch.cli.config import parse_config
+from cl4wsis_tpu_torch.data.maskrle import rle_decode
 from cl4wsis_tpu_torch.models import make_model
 from cl4wsis_tpu_torch.ops.instance_postproc import get_ins_map
-from cl4wsis_tpu_torch.serve import Predictor
+from cl4wsis_tpu_torch.serve import InstancePrediction, Predictor
+from cl4wsis_tpu_torch.train.trainer import Trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -126,6 +131,82 @@ def test_predictor_matches_jax(tiny_models, hw, bucket):
     assert 0 < len(got.instances()) == len(want.instances())
 
 
+def test_predictor_val_flip_matches_jax(tiny_models):
+    """val_flip: the image and its flip as one batch of 2, the seg
+    probabilities and centers averaged with the flip undone."""
+    jm, variables, port = tiny_models
+    img = (np.random.RandomState(7).rand(60, 44, 3) * 255).astype(np.uint8)
+    want = JaxPredictor(jm, variables, val_kernel=15, val_flip=True)(img)
+    got = Predictor(port, convert_jax_variables(variables), device="cpu",
+                    dtype="float32", val_kernel=15, val_flip=True)(img)
+    for k in ("ins_map", "labels", "valid", "seg"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(want, k),
+                                      err_msg=k)
+    np.testing.assert_allclose(got.scores, want.scores, rtol=0, atol=1e-5)
+    assert len(got.instances()) > 0
+    plain = Predictor(port, device="cpu", dtype="float32", val_kernel=15)(img)
+    assert not np.array_equal(plain.ins_map, got.ins_map)
+
+
+def _prediction(cls, seed, H=20, W=16, S=6):
+    rs = np.random.RandomState(seed)
+    ins = rs.randint(-1, S, (H, W)).astype(np.int32)
+    ins[:, :3] = 5                               # slot 5: a column band
+    labels = rs.randint(0, 20, S).astype(np.int32)
+    valid = np.array([True, True, False, True, False, True])
+    scores = rs.rand(S).astype(np.float32)
+    seg = np.where(ins >= 0, labels[np.clip(ins, 0, None)] + 1, 0)
+    return cls(ins_map=ins, labels=labels, scores=scores, valid=valid,
+               seg=seg.astype(np.int32))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_to_coco_matches_jax(seed):
+    """COCO results (uncompressed RLE) equal the JAX package's; each RLE
+    decodes back to its instance's mask exactly."""
+    got = _prediction(InstancePrediction, seed)
+    want = _prediction(JaxInstancePrediction, seed)
+    cats = list(range(100, 120))
+    for kw in ({}, {"category_ids": cats}):
+        res = got.to_coco(image_id=7, **kw)
+        assert res == want.to_coco(image_id=7, **kw)
+        assert len(res) == 4
+        for r, inst in zip(res, got.instances()):
+            assert r["image_id"] == 7 and r["score"] == inst["score"]
+            m = rle_decode(r["segmentation"]["counts"],
+                           *r["segmentation"]["size"])
+            np.testing.assert_array_equal(m, inst["mask"].astype(np.uint8))
+    assert res[0]["category_id"] == cats[got.labels[0]]
+
+
+def test_from_checkpoint_matches_the_in_memory_predictor(tmp_path):
+    """A tiny trainer's checkpoint, served through from_checkpoint, gives
+    the outputs of a Predictor over the trainer's own model, bit for
+    bit."""
+    cfg = parse_config(["--tiny", "--synthetic", "--device", "cpu", "--dtype",
+                        "float32", "--crop_size", "64", "--step", "0"])
+    trainer = Trainer(cfg, iters_per_epoch=1)
+    with torch.no_grad():
+        for conv in trainer.model.instance_head.classifier.center.cls:
+            conv.bias += 0.3
+    path = str(tmp_path / "ck")
+    trainer.save(path, 0)
+    kw = dict(device="cpu", dtype="float32", val_kernel=15)
+    served = Predictor.from_checkpoint(path, trainer.classes, crop_size=64,
+                                       **kw)
+    assert [len(getattr(served.model.body, f"mod{i}")) for i in (2, 3, 4, 5)
+            ] == [1, 1, 1, 1]
+    ref = Predictor(trainer.model, **kw)
+    for hw in ((60, 44), (64, 64)):
+        img = (np.random.RandomState(hw[1]).rand(*hw, 3) * 255).astype(
+            np.uint8)
+        got, want = served(img), ref(img)
+        for k in ("ins_map", "labels", "valid", "seg", "scores"):
+            np.testing.assert_array_equal(getattr(got, k), getattr(want, k),
+                                          err_msg=k)
+        assert len(got.instances()) > 0
+
+
 def test_predictor_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -154,7 +235,9 @@ assert {"cl4wsis_tpu_torch.train.phase2", "cl4wsis_tpu_torch.ops.labelgen",
         "cl4wsis_tpu_torch.wss.modules",
         "cl4wsis_tpu_torch.data.synthetic", "cl4wsis_tpu_torch.cli.main",
         "cl4wsis_tpu_torch.train.trainer", "cl4wsis_tpu_torch.metrics.voc_ap",
-        "cl4wsis_tpu_torch.cl.tasks"} <= set(mods), mods
+        "cl4wsis_tpu_torch.cl.tasks", "cl4wsis_tpu_torch.data.voc",
+        "cl4wsis_tpu_torch.data.coco", "cl4wsis_tpu_torch.data.loader",
+        "cl4wsis_tpu_torch.data.native"} <= set(mods), mods
 """
     p = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
