@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path, its step-0, phase-1 and
 phase-2 train steps, the CLI chain of the three on synthetic and on VOC
-data, validation and serving from a checkpoint on one NVIDIA card.
+data and the COCO-to-VOC recipe (WideResNet-38), validation and serving
+from a checkpoint on one NVIDIA card.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -13,8 +14,11 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      peak-like and NMS rows, CC at connectivity 4 and 8, run totals on
      uniform and step-like rows and where runs meet the tiles' edges, the
      stamp on random slots, on the phase-2 step's own slot sets and on the
-     step-0 slots of a synthetic batch), and time kernel, plain version and, where one exists, the single PyTorch
-     call computing the same function (CUDA events and device time);
+     step-0 slots of a synthetic batch; then top-k, CC, run totals and the
+     stamp at the COCO-to-VOC chain's shapes: 448^2 with 80 thing classes,
+     20 new, and validation's 704^2 bucket), and time kernel, plain
+     version and, where one exists, the single PyTorch call computing the
+     same function (CUDA events and device time);
   3. serve 4 requests of VOC-native sizes through Predictor on the
      full-width ResNet-101 model (classes (16, 5), random weights from a
      seed, bfloat16), counting the kernel launches of each request; then run
@@ -62,12 +66,26 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      the phase-2 checkpoint (and on a copy with raised center biases),
      flip off and on, flip off bit-equal to a Predictor over the
      trainer's model, every to_coco RLE decoding to its mask; the loader
-     alone at 0 and 4 workers;
- 11. card against CPU: one step 0 and one phase-1 step of a tiny model
+     alone at 0 and 4 workers, a 24-batch window feeding a phase-2 epoch;
+ 11. COCO-to-VOC chain: a painted mini-COCO (48 train and 16 validation
+     JPEGs at 640x480, 480x640 and 640x427, the 60 step-0 classes) and
+     mini-VOC written as in phase 10, then the CLI three times with
+     --dataset coco-voc --task voc and the recipe's own WideResNet-38 at
+     output stride 8, crop 448, validation 512 (batch 16, bf16, 4 loader
+     workers, validation after each run), each run's launches, peak
+     memory and one more step under torch.profiler; two validation
+     forwards profiled; from_checkpoint on the phase-2 checkpoint (center
+     biases +0.3) bit-equal to the trainer's model; the phase-2 model's
+     validation with those biases through the kernels and the plain
+     versions (equal);
+ 12. the recipe's step-0 train step without and with --remat: peak
+     memory and step times, the stamp bit-equal on the step's own slots;
+ 13. card against CPU: one step 0 and one phase-1 step of a tiny model
      (backbone (1, 1, 1, 1), 64^2, float32, TF32 off; batch 2 for step 0,
      4 for phase 1) on the card and on the CPU from the same weights,
-     batch and draws;
- 12. print the kernels line (JSON) and, last, the ok line (JSON).
+     batch and draws; step 0 also with --norm_act abr and ain and on a
+     full-depth ResNet-18;
+ 14. print the kernels line (JSON) and, last, the ok line (JSON).
 Without a CUDA device it exits non-zero before printing any result.
 """
 
@@ -75,6 +93,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -86,6 +105,7 @@ import time
 import numpy as np
 import torch
 
+from cl4wsis_tpu_torch.cl import tasks
 from cl4wsis_tpu_torch.cl.ckpt import load_checkpoint
 from cl4wsis_tpu_torch.cli import main as cli
 from cl4wsis_tpu_torch.data.synthetic import synthetic_batches
@@ -113,6 +133,14 @@ OLD, NEW = 16, 5                           # VOC 15-5, step 1
 B, S = 16, 512                             # batch, crop
 MAX_INST = 50                              # step 0's instance slots
 WARMUP_STEPS, TIMED_STEPS = 2, 5
+# the COCO-to-VOC recipe: WideResNet-38 at output stride 8, crop 448,
+# validation 512 (a 512 x 683 image pads to its 704^2 bucket); step 0 has
+# 60 thing classes, step 1 adds 20
+COCO_VOC = (61, 20)
+WRN_KW = dict(backbone="wider_resnet38_a2", output_stride=8, crop_size=448)
+S_WRN, S_WRN_VAL, VAL_BUCKET = 448, 512, 704
+C0_WRN, NEW_WRN = COCO_VOC[0] - 1, COCO_VOC[1]
+C_WRN = C0_WRN + NEW_WRN
 KERNEL_INFO = {
     "topk": ("cl4wsis_tpu_torch/csrc/topk.cu",
              "cl4wsis_tpu/ops/pallas_topk.py:94"),
@@ -281,6 +309,15 @@ def run_totals_edge_cases(tile, rs):
         "N = tile - 1": np.sort(rs.randint(0, 9, (2, tile - 1))).astype(np.int32),
         "N = tile + 1": np.sort(rs.randint(0, 9, (2, tile + 1))).astype(np.int32),
     }
+
+
+def run_totals_args(dev, rs, keys, payloads=None):
+    """Sorted int32 key rows and three payloads (random unless given) on
+    the card."""
+    if payloads is None:
+        payloads = [rs.randint(0, 512, keys.shape) for _ in range(3)]
+    return [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+            for a in [keys] + payloads]
 
 
 def step_slots(name, rs, nb, K, H, W, C):
@@ -547,10 +584,7 @@ def check_kernels(dev, rs):
         return e
 
     def rt_args(keys, payloads=None):
-        if payloads is None:
-            payloads = [rs.randint(0, 512, keys.shape) for _ in range(3)]
-        return [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
-                for a in [keys] + payloads]
+        return run_totals_args(dev, rs, keys, payloads)
 
     def rt_case(args, shape):
         return dict(shape=shape, bound_ms=bound_ms(8 * args[0].numel() * 4),
@@ -669,6 +703,131 @@ def check_kernels(dev, rs):
         if r["max_abs_err"] != 0.0:
             raise AssertionError(f"kernel {name} disagrees with its plain "
                                  f"version: {r['max_abs_err']}")
+    for name, cases in check_kernels_coco_voc(dev, rs).items():
+        res[name]["coco_voc"] = cases
+    return res
+
+
+def check_kernels_coco_voc(dev, rs):
+    """Phase 2, continued: the four production kernels at the COCO-to-VOC
+    chain's shapes (WideResNet-38 at 448^2, 80 thing classes of which 20
+    new; validation images of 512 x 683 padded to their 704^2 bucket),
+    each bit-equal to its plain version, timed. Returns per kernel the
+    list of its cases."""
+    N, NV = S_WRN * S_WRN, VAL_BUCKET * VAL_BUCKET
+    res = {k: [] for k in ("cc_multilabel", "topk", "run_totals", "stamp")}
+
+    def case(name, shape, err, n_bytes, kernel, plain, library=None,
+             plain_iters=5):
+        if err != 0.0:
+            raise AssertionError(f"kernel {name} disagrees with its plain "
+                                 f"version at {shape}: {err}")
+        r = dict(shape=shape, max_abs_err=err, bound_ms=bound_ms(n_bytes),
+                 **timings(kernel, plain, library, plain_iters))
+        res[name].append(r)
+        log(f"{name} at {shape}: max_abs_err 0.0, {r['device_ms']} ms "
+            f"device, {r['ms']} ms events, plain {r['plain_ms']} ms, bound "
+            f"{r['bound_ms']:.6f} ms")
+
+    # CC: the phase-2 class maps at both connectivities; a validation map
+    maps = torch.from_numpy(np.stack(
+        [blobby(S_WRN, S_WRN, C_WRN, rs, cell=c) for c in (8, 16, 32, 64)]
+        * 4).astype(np.int32)).to(dev)
+    for conn in (8, 4):
+        case("cc_multilabel", f"(16, 448, 448) int32, connectivity {conn}, "
+             f"blobby 80-class maps (phase 2)",
+             max_abs_err(cc.cc_multilabel_cuda(maps, conn),
+                         cc.cc_multilabel_plain(maps, conn)),
+             2 * maps.numel() * 4, lambda: cc.cc_multilabel_cuda(maps, conn),
+             lambda: cc.cc_multilabel_plain(maps, conn), plain_iters=2)
+    vmap = blobby(VAL_BUCKET, VAL_BUCKET, C_WRN, rs)
+    vmap[512:], vmap[:, 683:] = 0, 0          # the bucket's pad: background
+    vmap = torch.from_numpy(vmap.astype(np.int32)).to(dev)
+    case("cc_multilabel", "(704, 704) int32, connectivity 8, blobby 80-class "
+         "map of a 512 x 683 image in its bucket (validation)",
+         max_abs_err(cc.cc_multilabel_cuda(vmap, 8),
+                     cc.cc_multilabel_plain(vmap, 8)),
+         2 * vmap.numel() * 4, lambda: cc.cc_multilabel_cuda(vmap, 8),
+         lambda: cc.cc_multilabel_plain(vmap, 8))
+    del maps, vmap
+
+    # top-k: the phase-2 CAM peaks (20 new classes x 16 images, k 25), the
+    # refinement's NMS rows (k 16), validation's NMS rows (80 classes, k 32)
+    nr = B * NEW_WRN
+    for rows, k, what in (
+            (rs.rand(nr, N).astype(np.float32) ** 8, 25,
+             "CAM-like rows (phase-2 CAM peaks)"),
+            (peak_rows(nr, N, rs), 25, "peak-like rows (mostly 0.0)"),
+            (nms_rows(nr, N, rs), 16, "NMS rows (phase-2 refinement)"),
+            (nms_rows(C_WRN, NV, rs), 32, "NMS rows (validation)")):
+        rows = torch.from_numpy(rows).to(dev)
+        gv, gi = topk.topk_cuda(rows, k)
+        pv, pi = topk.topk_plain(rows, k)
+        err = max(max_abs_err(gv, pv), max_abs_err(gi, pi))
+        if not torch.equal(gv.view(torch.int32), pv.view(torch.int32)):
+            err = float("inf")        # a signed zero swapped, say
+        case("topk", f"{tuple(rows.shape)} float32, k {k}, {what}", err,
+             rows.numel() * 4 + rows.shape[0] * k * 8,
+             lambda: topk.topk_cuda(rows, k), lambda: topk.topk_plain(rows, k),
+             lambda: torch.topk(rows, k))
+    del rows, gv, gi, pv, pi
+
+    # run totals: the refinement's (16, 448^2) rows, uniform and step-like
+    # (the pixel's y and x as payloads); validation's (1, 704^2)
+    yx = np.broadcast_to(np.arange(N), (B, N))
+    for args, what in (
+            (run_totals_args(dev, rs, np.sort(
+                rs.randint(0, 40000, (B, N)), axis=1)),
+             "uniform keys (runs of ~5)"),
+            (run_totals_args(dev, rs, step_like_rows(B, N, rs),
+                             [yx // S_WRN, yx % S_WRN, np.zeros_like(yx)]),
+             "step-like rows (one run over >= 90 %)"),
+            (run_totals_args(dev, rs, np.sort(
+                rs.randint(0, 3000, (1, NV)), axis=1)), "validation")):
+        got = segsort.run_totals_cuda(*args)
+        want = segsort.run_totals_plain(*args)
+        case("run_totals", f"{tuple(args[0].shape)} int32 x 4 in, x 4 out, "
+             f"{what}", max(max_abs_err(g, w) for g, w in zip(got, want)),
+             8 * args[0].numel() * 4,
+             lambda: segsort.run_totals_cuda(*args),
+             lambda: segsort.run_totals_plain(*args))
+    del args, got, want
+
+    # stamp: phase 2's pseudo (64 slots an image) and refined (20 new
+    # classes x (16 + 8)) slot sets -> (16, 80, 448, 448); border cases;
+    # step 0's slots of a synthetic batch -> (16, 60, 448, 448)
+    size = (S_WRN, S_WRN)
+
+    def stamp_case(slots, C, what):
+        K = slots[0].shape[1]
+        case("stamp", f"(16, {K}) slots, {int(slots[0].sum())} valid ({what})"
+             f" -> (16, {C}, 448, 448) float32, sigma 6",
+             max_abs_err(labelgen.stamp_centers_cuda(*slots, C, 6, size),
+                         labelgen.stamp_centers(*slots, C, 6, size)),
+             B * C * N * 4 + K * B * 13,
+             lambda: labelgen.stamp_centers_cuda(*slots, C, 6, size),
+             lambda: labelgen.stamp_centers(*slots, C, 6, size),
+             plain_iters=2)
+    K_refined = NEW_WRN * 24
+    border = [torch.from_numpy(a).to(dev) for a in
+              border_slots(rs, B, K_refined, S_WRN, S_WRN, C_WRN)]
+    e = max_abs_err(labelgen.stamp_centers_cuda(*border, C_WRN, 6, size),
+                    labelgen.stamp_centers(*border, C_WRN, 6, size))
+    log(f"stamp (16, {K_refined}) slots on every border -> (16, 80, 448, "
+        f"448): max_abs_err {e}")
+    if e != 0.0:
+        raise AssertionError("the stamp disagrees with its plain version on "
+                             "the border slots at 448^2")
+    for name, K in (("pseudo", 64), ("refined", K_refined)):
+        stamp_case([torch.from_numpy(a).to(dev) for a in
+                    step_slots(name, rs, B, K, S_WRN, S_WRN, C_WRN)],
+                   C_WRN, f"the phase-2 step's {name} stamp")
+    b0 = next(synthetic_batches(B, S_WRN, C0_WRN, seed=0, n_batches=1))
+    count, cy, cx, cls = labelgen.batched_instance_stats(
+        torch.from_numpy(b0["inst"]).to(dev),
+        torch.from_numpy(b0["seg"]).to(dev), MAX_INST)
+    stamp_case((count > 0, cy, cx, cls), C0_WRN,
+               "the step-0 stamp of a synthetic batch")
     return res
 
 
@@ -1010,7 +1169,9 @@ def train(dev):
     return launches
 
 
-def profile_step(step, state, batch, gen, median_ms):
+def profile_step(step, state, batch, gen, median_ms, what="step"):
+    """One step under torch.profiler: the device's busy time (returned, ms)
+    and its idle share of `median_ms`, the top kernels and operators."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1020,7 +1181,7 @@ def profile_step(step, state, batch, gen, median_ms):
     rows = kernel_rows(prof)
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     top = sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)
-    log(f"profiled step: device busy {busy_ms:.3f} ms in "
+    log(f"profiled {what}: device busy {busy_ms:.3f} ms in "
         f"{sum(e.count for e in rows)} kernels and copies, idle share "
         f"{1 - busy_ms / median_ms:.3f} of the unprofiled median step")
     for e in top[:20]:
@@ -1036,6 +1197,7 @@ def profile_step(step, state, batch, gen, median_ms):
     for e in ops[:15]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
             f"{e.key[:60]}")
+    return busy_ms
 
 
 def step0_batches(dev, n):
@@ -1046,15 +1208,17 @@ def step0_batches(dev, n):
             for b in synthetic_batches(B, S, OLD - 1, seed=0, n_batches=n)]
 
 
-def run_steps(what, step, state, batches, gen, per_step):
-    """2 warm-up and 5 timed steps over `batches` in turn, each step's
+def run_steps(what, step, state, batches, gen, per_step,
+              warmup=WARMUP_STEPS, timed=TIMED_STEPS, size=S):
+    """`warmup` and `timed` steps over `batches` in turn, each step's
     kernel launches held to `per_step`. Returns the metrics of every step,
-    the median of the timed steps (ms) and the launches of all steps."""
+    the median of the timed steps (ms), the launches of all steps and the
+    peak memory of the timed steps (GiB)."""
     torch.cuda.synchronize()
     kernels.reset_launches()
     times, metrics = [], []
-    for i in range(WARMUP_STEPS + TIMED_STEPS):
-        if i == WARMUP_STEPS:
+    for i in range(warmup + timed):
+        if i == warmup:
             torch.cuda.reset_peak_memory_stats()
         before = dict(kernels.LAUNCHES)
         t = time.perf_counter()
@@ -1066,20 +1230,20 @@ def run_steps(what, step, state, batches, gen, per_step):
             raise AssertionError(f"{what} step {i}: launches {delta}, "
                                  f"expected {per_step}")
         metrics.append({k: float(v) for k, v in m.items()})
-        log(f"{what} step {i} ({'warm-up' if i < WARMUP_STEPS else 'timed'}"
+        log(f"{what} step {i} ({'warm-up' if i < warmup else 'timed'}"
             f"): {times[-1]:.3f} ms, " +
             ", ".join(f"{k} {v:.6f}" for k, v in metrics[-1].items()))
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    timed = times[WARMUP_STEPS:]
-    median = float(np.median(timed))
-    log(f"{what} step, batch {B} at {S}x{S}, bf16: median {median:.3f} ms "
-        f"(timed samples {[round(v, 3) for v in timed]}), "
+    timed_ms = times[warmup:]
+    median = float(np.median(timed_ms))
+    log(f"{what} step, batch {B} at {size}x{size}, bf16: median "
+        f"{median:.3f} ms (timed samples {[round(v, 3) for v in timed_ms]}), "
         f"{B / median * 1e3:.3f} img/s, peak memory {peak:.3f} GiB, "
         f"launches over {len(times)} steps {launches}")
     if not all(np.isfinite(v) for m in metrics for v in m.values()):
         raise AssertionError(f"a {what} loss is not finite")
-    return metrics, median, launches
+    return metrics, median, launches, peak
 
 
 def moved_groups(before, after, group_fn):
@@ -1089,6 +1253,35 @@ def moved_groups(before, after, group_fn):
         g = group_fn(k)
         moved[g] = moved.get(g, 0) + int(not torch.equal(t, after[k]))
     return moved
+
+
+@contextlib.contextmanager
+def first_stamp_checked(what):
+    """While open, the first call of labelgen.stamp_centers_batched (a
+    step's own slots) is held against the plain version at once, so that
+    neither output stays on the card; on leaving, raise if it disagreed or
+    never came."""
+    seen = []
+    real = labelgen.stamp_centers_batched
+
+    def keeping(*a):
+        out = real(*a)
+        if not seen:
+            seen.append((int(a[0].sum()), tuple(a[0].shape), tuple(out.shape),
+                         max_abs_err(out, labelgen.stamp_centers(*a))))
+        return out
+
+    labelgen.stamp_centers_batched = keeping
+    try:
+        yield
+    finally:
+        labelgen.stamp_centers_batched = real
+    n_valid, slots, shape, e = seen[0]
+    log(f"{what} step's own stamp, {slots} slots, {n_valid} valid -> "
+        f"{shape}: kernel against plain max_abs_err {e}")
+    if e != 0.0:
+        raise AssertionError(f"the {what} stamp disagrees with its plain "
+                             f"version on the step's own slots")
 
 
 def train_step0(dev):
@@ -1107,29 +1300,9 @@ def train_step0(dev):
     before = {k: v.clone() for k, v in model.state_dict().items()}
     log(f"step-0 set-up {time.perf_counter() - t0:.1f} s")
 
-    seen = []                      # the first stamp's slots and output
-    real_stamp = labelgen.stamp_centers_batched
-
-    def keeping(*a):
-        out = real_stamp(*a)
-        if not seen:
-            seen.append((a, out))
-        return out
-
-    labelgen.stamp_centers_batched = keeping
-    try:
-        metrics, median, launches = run_steps("step-0", step, state, batches,
-                                              gen, PER_STEP0)
-    finally:
-        labelgen.stamp_centers_batched = real_stamp
-    args, out = seen[0]
-    e = max_abs_err(out, labelgen.stamp_centers(*args))
-    log(f"step-0 step's own stamp, ({B}, {MAX_INST}) slots, "
-        f"{int(args[0].sum())} valid -> {tuple(out.shape)}: kernel against "
-        f"plain max_abs_err {e}")
-    if e != 0.0:
-        raise AssertionError("the step-0 stamp disagrees with its plain "
-                             "version on the step's own slots")
+    with first_stamp_checked("step-0"):
+        metrics, median, launches, _ = run_steps("step-0", step, state,
+                                                 batches, gen, PER_STEP0)
     if not all(m["l_center"] > 0 and m["l_offset"] > 0 for m in metrics):
         raise AssertionError("a step-0 step had no instance loss")
     moved = moved_groups(before, model.state_dict(),
@@ -1172,8 +1345,8 @@ def train_phase1(dev):
     old_before = {k: v.clone() for k, v in model_old.state_dict().items()}
     log(f"phase-1 set-up {time.perf_counter() - t0:.1f} s")
 
-    metrics, median, launches = run_steps("phase-1", step, state, batches,
-                                          gen, PER_PHASE1)
+    metrics, median, launches, _ = run_steps("phase-1", step, state,
+                                             batches, gen, PER_PHASE1)
     kernels.reset_launches()
     t = time.perf_counter()
     m = warm(state, batches[0], gen)
@@ -1221,8 +1394,9 @@ CHAIN_PER_STEP = {"step 0": PER_STEP0, "phase 1": PER_PHASE1,
 
 class ChainRecorder:
     """Given to cli.main as `on_trainer`: keeps every trainer the CLI
-    builds, its epoch metrics and the times of its checkpoint saves and
-    loads (each ending in a synchronize)."""
+    builds, its epoch metrics, the times of its checkpoint saves and
+    loads (each ending in a synchronize) and the last batch it put on the
+    card."""
 
     def __init__(self):
         self.made = []
@@ -1248,6 +1422,12 @@ class ChainRecorder:
             trainer.epochs.append(train_epoch(*a, **kw))
             return trainer.epochs[-1]
         trainer.train_epoch = recorded_epoch
+        device_batch = trainer._device_batch
+
+        def keeping_batch(batch):
+            trainer.last_batch = device_batch(batch)
+            return trainer.last_batch
+        trainer._device_batch = keeping_batch
         self.made.append(trainer)
 
 
@@ -1453,6 +1633,57 @@ def palette(c):
                      (c * 151) % 200 + 55], np.uint8)
 
 
+def paint_objects(arr, i, cats, rs):
+    """Paint class-coloured boxes of the classes `cats` (the first at the
+    top, the second below the middle) into image `i`'s array (H, W, 3),
+    scaled to the canvas; returns their COCO annotations without ids."""
+    H, W = arr.shape[:2]
+    sc = min(W, H) // 64
+    ow = 16 * sc
+    x0 = 4 + (3 * i) % (W - 12 - ow)
+    anns = []
+    for k, c in enumerate(cats):
+        y0 = H // 2 + 2 if k == 1 else 4
+        oh = (16 + c % 7) * sc
+        poly = [x0, y0, x0 + ow, y0, x0 + ow, y0 + oh, x0, y0 + oh]
+        anns.append({"category_id": c, "segmentation": [poly], "iscrowd": 0,
+                     "bbox": [x0, y0, ow, oh], "area": ow * oh})
+        block = (palette(c)[None, None, :].astype(np.int32)
+                 + rs.randint(-12, 13, (oh, ow, 3)))
+        arr[y0:y0 + oh, x0:x0 + ow] = np.clip(block, 0, 255)
+    return anns
+
+
+def write_painted_set(img_dirs, sizes, classes_of, n_categories):
+    """N_TRAIN + N_VAL JPEGs of gray noise at `sizes` (W x H, in turn) into
+    img_dirs["train"] / ["val"] (the first N_TRAIN train), each painted
+    with the classes `classes_of(i)` by paint_objects. Returns the COCO
+    bodies of the two splits and the annotations with their image sizes."""
+    from PIL import Image
+    rs = np.random.RandomState(0)
+    body = {split: {"images": [], "annotations": [], "categories": [
+        {"id": c, "name": str(c)} for c in range(1, n_categories + 1)]}
+        for split in ("train", "val")}
+    ann_id = 1
+    for i in range(N_TRAIN + N_VAL):
+        split = "train" if i < N_TRAIN else "val"
+        W, H = sizes[i % len(sizes)]
+        name = f"img_{i:03d}.jpg"
+        arr = (rs.rand(H, W, 3) * 40 + 100).astype(np.uint8)
+        body[split]["images"].append({"id": i + 1, "file_name": name,
+                                      "height": H, "width": W})
+        for ann in paint_objects(arr, i, classes_of(i), rs):
+            body[split]["annotations"].append(
+                dict(ann, id=ann_id, image_id=i + 1))
+            ann_id += 1
+        os.makedirs(img_dirs[split], exist_ok=True)
+        Image.fromarray(arr).save(os.path.join(img_dirs[split], name))
+    sizes_of = {im["id"]: (im["height"], im["width"])
+                for b in body.values() for im in b["images"]}
+    return body, [(a, sizes_of[a["image_id"]]) for b in body.values()
+                  for a in b["annotations"]]
+
+
 def write_mini_voc(root):
     """A painted mini-VOC, modelled on tests/test_data.py's fixture with
     rich=True and paint=True, at VOC-native sizes: JPEGs of gray noise
@@ -1461,45 +1692,15 @@ def write_mini_voc(root):
     boxes scaled to the canvas, and their polygons in
     voc/pascal_sbd_{train,val}.json (the first N_TRAIN images train, the
     next N_VAL validate). Returns the annotations with their image sizes."""
-    from PIL import Image
     img_dir = os.path.join(root, "voc", "JPEGImages")
-    os.makedirs(img_dir)
-    rs = np.random.RandomState(0)
-    body = {split: {"images": [], "annotations": [], "categories": [
-        {"id": c, "name": str(c)} for c in range(1, 21)]}
-        for split in ("train", "val")}
-    ann_id = 1
-    for i in range(N_TRAIN + N_VAL):
-        split = "train" if i < N_TRAIN else "val"
-        W, H = VOC_SIZES[i % len(VOC_SIZES)]
-        name = f"img_{i:03d}.jpg"
-        arr = (rs.rand(H, W, 3) * 40 + 100).astype(np.uint8)
-        body[split]["images"].append({"id": i + 1, "file_name": name,
-                                      "height": H, "width": W})
-        sc = min(W, H) // 64
-        ow = 16 * sc
-        x0 = 4 + (3 * i) % (W - 12 - ow)
-        for k, c in enumerate((16 + i % 5, i % 15 + 1)):
-            y0 = H // 2 + 2 if k == 1 else 4
-            oh = (16 + c % 7) * sc
-            poly = [x0, y0, x0 + ow, y0, x0 + ow, y0 + oh, x0, y0 + oh]
-            body[split]["annotations"].append({
-                "id": ann_id, "image_id": i + 1, "category_id": c,
-                "segmentation": [poly], "iscrowd": 0,
-                "bbox": [x0, y0, ow, oh], "area": ow * oh})
-            ann_id += 1
-            block = (palette(c)[None, None, :].astype(np.int32)
-                     + rs.randint(-12, 13, (oh, ow, 3)))
-            arr[y0:y0 + oh, x0:x0 + ow] = np.clip(block, 0, 255)
-        Image.fromarray(arr).save(os.path.join(img_dir, name))
+    body, anns = write_painted_set({"train": img_dir, "val": img_dir},
+                                   VOC_SIZES,
+                                   lambda i: (16 + i % 5, i % 15 + 1), 20)
     for split, b in body.items():
         with open(os.path.join(root, "voc", f"pascal_sbd_{split}.json"),
                   "w") as f:
             json.dump(b, f)
-    sizes = {im["id"]: (im["height"], im["width"])
-             for b in body.values() for im in b["images"]}
-    return [(a, sizes[a["image_id"]]) for b in body.values()
-            for a in b["annotations"]]
+    return anns
 
 
 def check_native(anns):
@@ -1585,44 +1786,30 @@ def no_workers_left(what, wait_s=10.0):
 
 
 def loader_alone(train, trainer, step_ms):
-    """The loader without the CLI: epochs 0 and 1 of the 3 batches of 16
-    at 0 and LOADER_WORKERS worker processes (pinned, as the CLI on the
-    card builds it). Then a window of 48 batches (12 at 0 workers), six
-    times the workers' prefetch depth of 8: epoch 0 with nothing but the
-    loader (the workers' steady production per batch, after the depth),
-    epoch 1 consumed by the phase-2 trainer's own epoch (`trainer`), whose
-    steps hold the host as the chain's do. Its total wait for batches is
-    read as a share of `step_ms` (the chain's phase-2 step) per batch,
-    with the mean and the largest wait."""
+    """The loader without the CLI at 0 and LOADER_WORKERS worker processes
+    (pinned, as the CLI on the card builds it): a window of 24 batches (6
+    at 0 workers), three times the workers' prefetch depth of 8: epoch 0
+    with nothing but the loader (the first batch's wait, then the workers'
+    steady production per batch after the depth), epoch 1 consumed by the
+    phase-2 trainer's own epoch (`trainer`), whose steps hold the host as
+    the chain's do. Its total wait for batches is read as a share of
+    `step_ms` (the chain's phase-2 step) per batch, with the mean and the
+    largest wait."""
     from cl4wsis_tpu_torch.data.loader import Loader
     for workers in (0, LOADER_WORKERS):
-        loader = Loader(train, B, seed=42, num_workers=workers,
-                        pin_memory=True)
-        for epoch in (0, 1):
-            t = time.perf_counter()
-            first, n = None, 0
-            for b in loader.epoch(epoch):
-                n += 1
-                if first is None:
-                    first = time.perf_counter() - t
-                if not b["image"].is_pinned():
-                    raise AssertionError("the loader's batch is not pinned")
-            sec = time.perf_counter() - t
-            log(f"loader alone, {workers} workers (os.cpu_count() "
-                f"{os.cpu_count()}), epoch {epoch}: {n} batches of {B} in "
-                f"{sec:.3f} s, {n / sec:.3f} batches/s, "
-                f"{sec * 1e3 / (n * B):.3f} ms an image, first batch after "
-                f"{first * 1e3:.3f} ms")
-        loader.close()
-        rep = Loader(Repeated(train, 16 if workers else 4), B, seed=42,
+        rep = Loader(Repeated(train, 8 if workers else 2), B, seed=42,
                      num_workers=workers, pin_memory=True)
         t = time.perf_counter()
-        arrivals = [time.perf_counter() - t for _ in rep.epoch(0)]
+        arrivals = []
+        for b in rep.epoch(0):
+            arrivals.append(time.perf_counter() - t)
+            if not b["image"].is_pinned():
+                raise AssertionError("the loader's batch is not pinned")
         depth = 2 * workers
         per_batch = (arrivals[-1] - arrivals[depth]) * 1e3 / (
             len(arrivals) - 1 - depth)
-        log(f"loader, {workers} workers, {len(arrivals)} batches with no "
-            f"consumer: first after {arrivals[0] * 1e3:.3f} ms, then "
+        log(f"loader, {workers} workers (os.cpu_count() {os.cpu_count()}), "
+            f"{len(arrivals)} batches with no consumer: first after {arrivals[0] * 1e3:.3f} ms, then "
             f"{per_batch:.3f} ms a batch after the first {depth + 1} "
             f"({per_batch / B:.3f} ms an image)")
         waits = []
@@ -1647,22 +1834,18 @@ def loader_alone(train, trainer, step_ms):
             f"{[round(v, 3) for v in waits]}")
 
 
-def voc_chain(root):
-    """Phase 10: the CLI chain on the painted mini-VOC at full width, with
-    the loader's worker processes, validation after each run, serving
-    from the phase-2 checkpoint, and validation through the kernels
-    against the plain versions. Returns the launches of each run and of
-    the serving from the checkpoint."""
-    anns = write_mini_voc(os.path.join(root, "data"))
-    check_native(anns)
-    step0_ckpt = os.path.join(root, "ck", "step", "voc-15-5-ov", "exp_0")
-    p1_ckpt = os.path.join(root, "ck", "step", "voc-15-5-ov", "exp_p1_1")
+def real_chain(root, common, task_dir, what, after_run=None):
+    """The CLI three times (CHAIN_RUNS) with `common` on the data under
+    root/data, 4 loader workers and validation after each run: the
+    launches of each run held to its steps and its validation, the host
+    wait for each batch, the run's peak memory, phase 2's body and seg
+    equal to phase 1's. `after_run(run, trainer, steps_ms)`, where given,
+    sees each run's trainer. Returns the launches and step times of each
+    run, the phase-2 trainer and the validation set."""
+    step0_ckpt = os.path.join(root, "ck", "step", task_dir, "exp_0")
+    p1_ckpt = os.path.join(root, "ck", "step", task_dir, "exp_p1_1")
     extra = {"phase 1": ["--step_ckpt", step0_ckpt],
              "phase 2": ["--step_ckpt", step0_ckpt, "--seg_ckpt", p1_ckpt]}
-    common = [a for a in CHAIN_COMMON if a != "--synthetic"] + [
-        "--data_root", os.path.join(root, "data"), "--crop_size_val",
-        str(S), "--num_workers", str(LOADER_WORKERS), "--pretrained",
-        "false"]
     launches, steps, rec, watch = {}, {}, ChainRecorder(), LoaderWatch()
     real_validation, val_ms = cli.run_validation, {}
 
@@ -1682,11 +1865,13 @@ def voc_chain(root):
                 os.path.join(root, "trace", run.replace(" ", ""))]
             torch.cuda.synchronize()
             kernels.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
             if cli.main(argv, on_trainer=rec) != 0:
-                raise AssertionError(f"voc chain {run}: main() failed")
+                raise AssertionError(f"{what} {run}: main() failed")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
             launches[run] = dict(kernels.LAUNCHES)
             tr, val = rec.made[-1], watch.val
             m = tr.epochs[0]
@@ -1694,35 +1879,42 @@ def voc_chain(root):
             want = {k: v * n + VOC_PER_VAL[run][k] * len(val)
                     for k, v in CHAIN_PER_STEP[run].items()}
             if n != N_TRAIN // B or len(val) != N_VAL:
-                raise AssertionError(f"voc chain {run}: {n} batches, "
+                raise AssertionError(f"{what} {run}: {n} batches, "
                                      f"{len(val)} validation images")
             if launches[run] != want:
-                raise AssertionError(f"voc chain {run}: launches "
+                raise AssertionError(f"{what} {run}: launches "
                                      f"{launches[run]}, expected {want}")
             if not all(np.isfinite(v) for v in m.values()):
-                raise AssertionError(f"voc chain {run}: {m}")
+                raise AssertionError(f"{what} {run}: {m}")
             path = tr.default_ckpt_path()
             if not os.path.exists(path):
-                raise AssertionError(f"voc chain {run}: no checkpoint {path}")
+                raise AssertionError(f"{what} {run}: no checkpoint {path}")
             steps[run] = [round(v * 1e3, 3) for v in tr.step_timer.times]
-            log(f"voc chain {run}: main() {wall:.3f} s, epoch {n} batches "
+            log(f"{what} {run}: main() {wall:.3f} s, epoch {n} batches "
                 f"{m['epoch_time_s']:.3f} s, loss {m['loss']:.6f}, step "
                 f"times ms {steps[run]} (step 2 under torch.profiler), batch "
                 f"waits ms {[round(v, 3) for v in watch.waits]} (the "
-                f"trainer takes 3 batches before its first step), "
-                f"checkpoint {os.path.getsize(path) / 2 ** 30:.3f} GiB, " +
+                f"trainer takes 3 batches before its first step), peak "
+                f"memory {peak:.3f} GiB, checkpoint "
+                f"{os.path.getsize(path) / 2 ** 30:.3f} GiB, " +
                 ", ".join(f"{k} {v:.3f} s" for k, v in tr.times.items()) +
                 f", validation {val_ms['test']:.3f} ms an image, launches "
                 f"{launches[run]}")
             if run == "phase 2":
-                log(f"voc chain phase 2 epoch means: pseudo_weight_px "
+                log(f"{what} phase 2 epoch means: pseudo_weight_px "
                     f"{m['pseudo_weight_px']:.1f}, label_truncated "
                     f"{m['label_truncated']:.2f}, l_center "
                     f"{m['l_center']:.6f}, l_offset {m['l_offset']:.6f}")
-            no_workers_left(f"voc chain {run}")
+            no_workers_left(f"{what} {run}")
+            if after_run is not None:
+                after_run(run, tr, steps[run])
+            if run != "phase 2":
+                rec.made.clear()
+                gc.collect()
+                torch.cuda.empty_cache()
     finally:
         cli.build_data, cli.run_validation = watch.real, real_validation
-    t2, val = rec.made[-1], watch.val
+    t2 = rec.made[-1]
     rec.made.clear()
 
     p1 = load_checkpoint(p1_ckpt)["model"]
@@ -1730,12 +1922,28 @@ def voc_chain(root):
     frozen = [k for k in p1 if schedule.default_group_fn(k) in ("body", "seg")]
     bad = [k for k in frozen if not torch.equal(sd[k].cpu(), p1[k])]
     if bad or len(frozen) < 100:
-        raise AssertionError(f"voc chain: {len(bad)} body/seg tensors differ "
+        raise AssertionError(f"{what}: {len(bad)} body/seg tensors differ "
                              f"from the phase-1 checkpoint")
-    log(f"voc chain checks: losses finite, launches as expected, phase 2's "
+    log(f"{what} checks: losses finite, launches as expected, phase 2's "
         f"{len(frozen)} body and seg tensors equal phase 1's bit for bit")
+    return launches, steps, t2, watch
 
-    samples = [val[i] for i in range(len(val))]
+
+def voc_chain(root):
+    """Phase 10: the CLI chain on the painted mini-VOC at full width, with
+    the loader's worker processes, validation after each run, serving
+    from the phase-2 checkpoint, and validation through the kernels
+    against the plain versions. Returns the launches of each run and of
+    the serving from the checkpoint."""
+    anns = write_mini_voc(os.path.join(root, "data"))
+    check_native(anns)
+    common = [a for a in CHAIN_COMMON if a != "--synthetic"] + [
+        "--data_root", os.path.join(root, "data"), "--crop_size_val",
+        str(S), "--num_workers", str(LOADER_WORKERS), "--pretrained",
+        "false"]
+    launches, steps, t2, watch = real_chain(root, common, "voc-15-5-ov",
+                                            "voc chain")
+    samples = [watch.val[i] for i in range(len(watch.val))]
     validate_voc(t2, samples, "as trained")
     serve_launches, lifted = serve_from_checkpoint(
         t2, t2.default_ckpt_path(), root)
@@ -1784,13 +1992,18 @@ def validate_voc(trainer, samples, what):
         f"{[round(v, 3) for v in times]})")
 
 
-def serve_from_checkpoint(trainer, path, root):
-    """Predictor.from_checkpoint on the phase-2 checkpoint the chain wrote,
-    and on a copy with the center heads' biases raised by 0.3 (so that the
-    random weights give instances): 4 requests each, flip off and on.
-    Flip off must equal a Predictor over the trainer's model with the same
-    state dict bit for bit; every to_coco RLE must decode to its mask.
-    Returns the launches and the raised state dict."""
+def serve_from_checkpoint(trainer, path, root, classes=(OLD, NEW),
+                          model_kw=None, variants=("as written",
+                                                   "center bias +0.3"),
+                          flips=(False, True)):
+    """Predictor.from_checkpoint on the phase-2 checkpoint the chain wrote
+    ("as written"), and on a copy with the center heads' biases raised by
+    0.3 (so that the random weights give instances): 4 requests each,
+    for each of `flips`. Flip off must equal a Predictor over the
+    trainer's model with the same state dict bit for bit; every to_coco
+    RLE must decode to its mask. `model_kw` go to from_checkpoint
+    (backbone, output_stride, crop_size). Returns the launches and the
+    raised state dict."""
     from cl4wsis_tpu_torch.cl.ckpt import save_checkpoint
     from cl4wsis_tpu_torch.data.maskrle import rle_decode
     lifted = {k: v.clone() for k, v in load_checkpoint(path)["model"].items()}
@@ -1804,12 +2017,13 @@ def serve_from_checkpoint(trainer, path, root):
     images = [request_image(h, w, rs) for h, w in SERVE_SIZES]
     kernels.reset_launches()
     n_inst = {}
-    for what, ck in (("as written", path), ("center bias +0.3",
-                                            lifted_path)):
+    paths = {"as written": path, "center bias +0.3": lifted_path}
+    for what in variants:
+        ck = paths[what]
         t = time.perf_counter()
-        served = {flip: Predictor.from_checkpoint(ck, (OLD, NEW),
-                                                  val_flip=flip)
-                  for flip in (False, True)}
+        served = {flip: Predictor.from_checkpoint(ck, classes, val_flip=flip,
+                                                  **(model_kw or {}))
+                  for flip in flips}
         load_s = time.perf_counter() - t
         ref = Predictor(trainer.model, load_checkpoint(ck)["model"])
         for flip, pred in served.items():
@@ -1837,7 +2051,7 @@ def serve_from_checkpoint(trainer, path, root):
                 counts.append(len(coco))
             n_inst[(what, flip)] = sum(counts)
             log(f"from_checkpoint ({what}), flip {flip}: built in "
-                f"{load_s:.3f} s (both), latency ms "
+                f"{load_s:.3f} s (every flip), latency ms "
                 f"{[round(v, 3) for v in lat]}, instances {counts}, every "
                 f"to_coco RLE decodes to its mask" +
                 (", outputs bit-equal to the trainer's model" if not flip
@@ -1846,13 +2060,148 @@ def serve_from_checkpoint(trainer, path, root):
     if n_inst[("center bias +0.3", False)] == 0:
         raise AssertionError("from_checkpoint: no instance to export")
     launches = dict(kernels.LAUNCHES)
-    want = {k: v * len(images) * 2 * 3 for k, v in PER_REQUEST.items()}
-    if launches != want:        # 2 checkpoints x (flip off, on, reference)
+    want = {k: v * len(images) * len(variants) * (len(flips) + 1)
+            for k, v in PER_REQUEST.items()}
+    if launches != want:        # checkpoints x (flips, the reference)
         raise AssertionError(f"from_checkpoint: launches {launches}, "
                              f"expected {want}")
     gc.collect()
     torch.cuda.empty_cache()
     return launches, lifted
+
+
+# ------------------------------------------------- COCO-to-VOC chain
+
+COCO_SIZES = ((640, 480), (480, 640), (640, 427))   # (W, H)
+
+
+def write_mini_coco(root):
+    """A painted mini-COCO for the COCO-to-VOC step 0, in the layout of
+    tests/test_coco_data.py's fixture: JPEGs of gray noise at COCO-native
+    sizes cycling 640x480, 480x640 and 640x427 (W x H), each with two of
+    the 60 step-0 classes (all of them in turn) painted as class-coloured
+    boxes, their polygons in coco/annotations/instances_{train,val}2017.json
+    (the first N_TRAIN images train, the next N_VAL validate) and the file
+    lists in coco/split/{train,val}.txt. Returns the annotations with
+    their image sizes."""
+    labels = [c for c in tasks.get_task_labels("coco-voc", "voc", 0)[0] if c]
+    coco = os.path.join(root, "coco")
+    folders = {"train": "train2017", "val": "val2017"}
+    body, anns = write_painted_set(
+        {split: os.path.join(coco, "images", f) for split, f in
+         folders.items()}, COCO_SIZES,
+        lambda i: (labels[2 * i % len(labels)],
+                   labels[(2 * i + 1) % len(labels)]), 90)
+    os.makedirs(os.path.join(coco, "annotations"))
+    os.makedirs(os.path.join(coco, "split"))
+    for split, b in body.items():
+        with open(os.path.join(coco, "annotations",
+                               f"instances_{folders[split]}.json"), "w") as f:
+            json.dump(b, f)
+        with open(os.path.join(coco, "split", f"{split}.txt"), "w") as f:
+            f.write("".join(im["file_name"][:-4] + "\n"
+                            for im in b["images"]))
+    return anns
+
+
+def coco_voc_chain(root):
+    """Phase 11: the COCO-to-VOC recipe through the CLI at full width
+    (WideResNet-38, output stride 8, crop 448, validation 512, batch 16,
+    bf16, --dataset coco-voc --task voc, Config.finalize unpatched): step
+    0 on a painted mini-COCO, phase 1 and phase 2 on a painted mini-VOC in
+    the COCO label space, each validating; one more step of each run's
+    own train step under torch.profiler; two validation forwards under
+    torch.profiler; from_checkpoint on the phase-2 checkpoint with center
+    biases +0.3, bit-equal to the trainer's model; the phase-2 model's
+    validation with those biases through the kernels and the plain
+    versions (equal). Returns the launches of each run and of the serving
+    from the checkpoint."""
+    data = os.path.join(root, "data")
+    anns = write_mini_coco(data) + write_mini_voc(data)
+    check_native(anns)
+    common = ["--dataset", "coco-voc", "--task", "voc", "--data_root", data,
+              "--batch_size", str(B), "--dtype", "bfloat16", "--epochs",
+              "1", "--device", "cuda", "--num_workers", str(LOADER_WORKERS),
+              "--pretrained", "false"]
+    want_cfg = ("wider_resnet38_a2", 8, S_WRN, S_WRN_VAL, False,
+                "WiderResNet38A2", (S_WRN, S_WRN))
+
+    def profile_run(run, tr, steps_ms):
+        cfg = tr.cfg
+        got = (cfg.backbone, cfg.output_stride, cfg.crop_size,
+               cfg.crop_size_val, cfg.remat, type(tr.model.body).__name__,
+               tuple(tr.last_batch["image"].shape[1:3]))
+        if got != want_cfg:
+            raise AssertionError(f"coco-voc chain {run}: the recipe is not "
+                                 f"WideResNet-38 at OS8, 448/512: {got}")
+        gen = torch.Generator(device=tr.device).manual_seed(7)
+        profile_step(tr._get_step(0), tr.state, tr.last_batch, gen,
+                     steps_ms[1], what=f"coco-voc chain {run} step (one "
+                     f"more, on its last batch; idle share of its step 1)")
+
+    launches, _, t2, watch = real_chain(root, common, "coco-voc-voc-ov",
+                                        "coco-voc chain", profile_run)
+    if t2.classes != list(COCO_VOC) or \
+            t2.pseudolabeler.conv1.in_channels != 4096:
+        raise AssertionError(f"coco-voc chain: classes {t2.classes}")
+    samples = [watch.val[i] for i in range(len(watch.val))]
+    fwd = cli.make_instance_forward(t2)
+    for smp in (samples[0], samples[3]):   # 512 x 682 and 768 x 512
+        img = torch.from_numpy(np.asarray(smp["image"], np.float32))
+        hw = smp["gt_masks"].shape[1:]
+        fwd(img, hw)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fwd(img, hw)
+        torch.cuda.synchronize()
+        profile_step(lambda *a: fwd(img, hw), None, None, None,
+                     (time.perf_counter() - t) * 1e3,
+                     what=f"validation forward of a {tuple(hw)} image")
+    serve_launches, lifted = serve_from_checkpoint(
+        t2, t2.default_ckpt_path(), root, COCO_VOC, WRN_KW,
+        variants=("center bias +0.3",), flips=(False,))
+    t2.model.load_state_dict(lifted)
+    validate_voc(t2, samples, "coco-voc, center bias +0.3")
+    del t2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, serve_launches
+
+
+def wrn_step0(dev):
+    """Phase 12: the recipe's step-0 train step (make_model((61,),
+    WideResNet-38, OS8, 448), batch 16 at 448^2, bf16, Adam 5e-5) without
+    and with --remat: 1 warm-up and 2 timed steps each, the peak memory of
+    the timed steps, the stamp launched once a step and bit-equal to its
+    plain version on the step's own (16, 50) slots."""
+    batches = [{k: torch.from_numpy(b[k]).to(dev)
+                for k in ("image", "seg", "inst")}
+               for b in synthetic_batches(B, S_WRN, C0_WRN, seed=0,
+                                          n_batches=2)]
+    runs = {}
+    for remat in (False, True):
+        torch.manual_seed(0)
+        model = make_model(COCO_VOC[:1], remat=remat, **WRN_KW)
+        step = step0.make_step0_train_step(model, sigma=6, max_inst=MAX_INST,
+                                           device="cuda", dtype="bfloat16")
+        state = step0.init_state(model, "adam",
+                                 schedule.make_schedule("poly", 5e-5, 10000))
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        what = f"WideResNet-38 step-0 (remat {remat})"
+        with first_stamp_checked(what):
+            metrics, median, _, peak = run_steps(
+                what, step, state, batches, gen, PER_STEP0, warmup=1,
+                timed=2, size=S_WRN)
+        runs[remat] = (median, peak, metrics[0]["loss"])
+        del model, step, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    (m0, p0, l0), (m1, p1, l1) = runs[False], runs[True]
+    log(f"WideResNet-38 step 0, batch {B} at {S_WRN}x{S_WRN}, bf16: peak "
+        f"memory {p0:.3f} GiB without --remat, {p1:.3f} GiB with; median "
+        f"step {m0:.3f} / {m1:.3f} ms; first-step loss {l0:.6f} / {l1:.6f}")
+    if not p1 < p0:
+        raise AssertionError("--remat did not lower the step's peak memory")
 
 
 class FixedDropout(torch.nn.Module):
@@ -1873,7 +2222,15 @@ TINY = (1, 1, 1, 1)
 # update (update_reading). A detached loss term reads 0.3 to 1 in the
 # CPU tests against JAX (tests/test_torch_step0.py, test_torch_phase1.py).
 CPU_TOL = {"loss (relative)": 2e-4, "parameter updates (relative)": 0.05,
-           "BN statistics": 5e-5, "head.red_bn statistics": 1e-3}
+           "BN statistics": 5e-5, "head.red_bn statistics": 1e-3,
+           "dead branch updates (of the largest)": 1e-9}
+# Under AIN the head's pooled branch is dead in train mode: its norm sees
+# one pixel a sample (output = bias), and red_bn removes every per-sample
+# spatial constant, so the exact gradient of these tensors is 0 and their
+# float32 updates are rounding noise (3e-14 of the largest, CPU). They are
+# held to that, not to a relative reading of noise against noise.
+AIN_DEAD = ("head.global_pooling_conv.", "head.global_pooling_bn.",
+            "head.pool_red_conv.")
 TINY_LR = 1e-4
 
 
@@ -1889,9 +2246,12 @@ def update_reading(before, cpu, card):
             0.0 if err <= floor else float("inf"))
 
 
-def tiny_step0(dev):
+def tiny_step0(dev, backbone="resnet101", structure=TINY,
+               norm_act="iabn_sync"):
+    """The tiny step 0 at batch 2 (a ResNet-18 is kept at full depth)."""
     torch.manual_seed(0)
-    model = make_model((3,), "resnet101", 16, 64, backbone_structure=TINY)
+    model = make_model((3,), backbone, 16, 64, norm_act=norm_act,
+                       backbone_structure=structure)
     keep = torch.rand((2, 256, 4, 4),
                       generator=torch.Generator().manual_seed(1)) >= 0.5
     model.decoder.instance_decoder.aspp.project_drop = FixedDropout(keep)
@@ -1934,14 +2294,22 @@ def tiny_phase1(dev, image=None):
 
 
 def card_vs_cpu():
-    """Phase 8: one step of each new train step at a tiny size on the card
-    and on the CPU, from the same weights, batch and draws."""
+    """Phase 13: one step of each train step at a tiny size on the card and
+    on the CPU, from the same weights, batch and draws; step 0 also with
+    the ABR and AIN norms and on a full-depth ResNet-18 (basic blocks)."""
     saved = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        for what, build in (("step 0", tiny_step0), ("phase 1", tiny_phase1)):
+        for what, build, dead in (
+                ("step 0", tiny_step0, ()), ("phase 1", tiny_phase1, ()),
+                ("step 0, --norm_act abr",
+                 functools.partial(tiny_step0, norm_act="abr"), ()),
+                ("step 0, --norm_act ain",
+                 functools.partial(tiny_step0, norm_act="ain"), AIN_DEAD),
+                ("step 0, full-depth resnet18", functools.partial(
+                    tiny_step0, backbone="resnet18", structure=None), ())):
             runs = {}
             for dev in ("cpu", "cuda"):
                 module, call = build(dev)
@@ -1956,8 +2324,14 @@ def card_vs_cpu():
                 runs["cpu"], runs["cuda"]
             err = {"loss (relative)": abs(l_card - l_cpu) / abs(l_cpu)}
             worst = {}
+            largest = max(float((t - before[k]).norm()) for k, t in
+                          sd_cpu.items() if k in params)
             for k, t in sd_cpu.items():
-                if k in params:
+                if k in params and k.startswith(dead):
+                    kind = "dead branch updates (of the largest)"
+                    e = max(float((u - before[k]).norm())
+                            for u in (t, sd_card[k])) / largest
+                elif k in params:
                     kind = "parameter updates (relative)"
                     e = update_reading(before[k], t, sd_card[k])
                 else:
@@ -2018,6 +2392,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         voc_launches, ckpt_serve_launches = voc_chain(root)
     log(f"real-data chain phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        cv_launches, cv_serve_launches = coco_voc_chain(root)
+    log(f"coco-voc chain phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    wrn_step0(dev)
+    log(f"WideResNet-38 step-0 remat phase: {time.perf_counter() - t:.1f} s")
     card_vs_cpu()
     log(f"all phases passed in {time.perf_counter() - t_phases:.1f} s after "
         f"the kernel build")
@@ -2036,14 +2417,18 @@ def main() -> int:
                                      f"path")
             if PER_STEP0[name]:
                 path += ", step-0 train step"
-            path += (", CLI chain (synthetic and VOC), validation, serving "
-                     "from a checkpoint")
+            path += (", CLI chain (synthetic, VOC and COCO-to-VOC), "
+                     "validation, serving from a checkpoint")
+            # every chain launches each kernel in phase 2 and the stamp at
+            # step 0; step 0's validation and serving launch the others
             if any(ln["phase 2"][name] < 1 or (
                     PER_STEP0[name] and ln["step 0"][name] < 1)
-                   for ln in (chain_launches, voc_launches)) or (
+                   for ln in (chain_launches, voc_launches, cv_launches)) or (
                     PER_REQUEST[name] and min(
                         validate_launches[name], ckpt_serve_launches[name],
-                        voc_launches["step 0"][name]) < 1):
+                        voc_launches["step 0"][name],
+                        cv_launches["step 0"][name],
+                        cv_serve_launches[name]) < 1):
                 raise AssertionError(f"kernel {name} was not launched in "
                                      f"a chain, in validation or in "
                                      f"serving from a checkpoint")
@@ -2058,6 +2443,10 @@ def main() -> int:
                      "launches_chain_voc": {run: ln[name] for run, ln in
                                             voc_launches.items()},
                      "launches_from_checkpoint": ckpt_serve_launches[name],
+                     "launches_chain_coco_voc": (
+                         {run: ln[name] for run, ln in cv_launches.items()}),
+                     "launches_from_checkpoint_coco_voc":
+                         cv_serve_launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": "bytes",
@@ -2065,7 +2454,8 @@ def main() -> int:
                      "library_device_ms": r["library_device_ms"],
                      "shape": r["shape"], "serving": r.get("serving"),
                      "cases": r.get("cases"), "step0": r.get("step0"),
-                     "connectivity_4": r.get("connectivity_4")})
+                     "connectivity_4": r.get("connectivity_4"),
+                     "coco_voc": r.get("coco_voc")})
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

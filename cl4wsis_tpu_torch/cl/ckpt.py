@@ -124,11 +124,13 @@ _BN_FIELDS = ("weight", "bias", "running_mean", "running_var")
 def convert_torch_resnet(state_dict: Dict[str, Any],
                          abs_bn_weight: bool = True
                          ) -> Dict[str, torch.Tensor]:
-    """A torch iABN ResNet state dict (the ImageNet pretrained format of
-    upstream ``segmentation_module.py:37-57``) -> the port's ``body.*``
-    keys, float32. A 'module.' prefix is stripped and ``classifier.*``
-    dropped. InPlace-ABN applies |weight| in its forward, so a BN weight
-    ingests as abs(weight) by default."""
+    """A torch iABN ResNet or WideResNet state dict (the ImageNet
+    pretrained format of upstream ``segmentation_module.py:37-57``) -> the
+    port's ``body.*`` keys, float32. A 'module.' prefix is stripped and
+    ``classifier.*`` dropped. Every ``bn*`` and ``proj_bn`` layer is a
+    norm (WideResNet's block ``bn1`` and ``bn_out`` too). InPlace-ABN
+    applies |weight| in its forward, so a BN weight ingests as abs(weight)
+    by default."""
     out: Dict[str, torch.Tensor] = {}
     for key, val in state_dict.items():
         if key.startswith("module."):
@@ -177,15 +179,20 @@ def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
             yield prefix + (k,), v
 
 
-def _body_module(path: Tuple[str, ...]) -> str:
+def _body_module(path: Tuple[str, ...], wide: bool) -> str:
+    """A body path -> its upstream key. In a ResNet block every norm lives
+    in ``convs``; in a WideResNet block ``bn1`` is the pre-activation norm
+    beside ``convs``, and ``bn_out`` follows the last module."""
     name, rest = path[0], path[1:]
     if name in ("mod1_conv1", "mod1_bn1"):
         return "mod1." + name[len("mod1_"):]
+    if name == "bn_out" and wide and not rest:
+        return name
     m = re.fullmatch(r"(mod\d+)_(block\d+)", name)
     if not m or len(rest) != 1:
         raise KeyError(path)
     layer = rest[0]
-    if layer.startswith("proj_"):
+    if layer.startswith("proj_") or (wide and layer == "bn1"):
         return f"{m.group(1)}.{m.group(2)}.{layer}"
     return f"{m.group(1)}.{m.group(2)}.convs.{layer}"
 
@@ -194,13 +201,14 @@ def _dwsep(path: Tuple[str, ...]) -> str:
     return _DWSEP[tuple(path)]
 
 
-def _module_key(path: Tuple[str, ...]) -> str:
-    """flax module path (without the leaf field) -> torch module path."""
+def _module_key(path: Tuple[str, ...], wide: bool = False) -> str:
+    """flax module path (without the leaf field) -> torch module path;
+    `wide`: the body is a WideResNet."""
     top, rest = path[0], path[1:]
     if not rest and top in _WSS_LAYERS:
         return top
     if top == "body":
-        return "body." + _body_module(rest)
+        return "body." + _body_module(rest, wide)
     if top == "seg_head":
         m = re.fullmatch(r"map_conv(\d)", rest[0])
         return f"head.map_convs.{m.group(1)}" if m else f"head.{rest[0]}"
@@ -235,8 +243,10 @@ def _module_key(path: Tuple[str, ...]) -> str:
 
 def convert_jax_variables(variables: Dict[str, Any]
                           ) -> Dict[str, torch.Tensor]:
-    """JAX ``{"params", "batch_stats"}`` tree of the model, the
-    PseudoLabeler or the PeakGenerator -> its port's state dict."""
+    """JAX ``{"params", "batch_stats"}`` tree of the model (any backbone),
+    the PseudoLabeler or the PeakGenerator -> its port's state dict."""
+    wide = any("bn_out" in variables.get(coll, {}).get("body", {})
+               for coll in ("params", "batch_stats"))
     sd: Dict[str, torch.Tensor] = {}
     for coll, fields in (("params", _PARAM_FIELDS),
                          ("batch_stats", _STAT_FIELDS)):
@@ -244,6 +254,6 @@ def convert_jax_variables(variables: Dict[str, Any]
             arr = np.asarray(leaf, dtype=np.float32)
             if path[-1] == "kernel":
                 arr = arr.transpose(3, 2, 0, 1)   # HWIO -> OIHW
-            key = f"{_module_key(path[:-1])}.{fields[path[-1]]}"
+            key = f"{_module_key(path[:-1], wide)}.{fields[path[-1]]}"
             sd[key] = torch.from_numpy(np.array(arr))  # a writable copy
     return sd

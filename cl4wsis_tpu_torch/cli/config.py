@@ -46,7 +46,7 @@ class Config:
     backbone: str = "resnet101"
     output_stride: int = 16
     norm_act: str = "iabn_sync"
-    remat: bool = False              # not ported (ROADMAP queue 1, item 9)
+    remat: bool = False              # recompute backbone blocks in backward
     pretrained: bool = True
     pretrained_path: str = "pretrained"
 

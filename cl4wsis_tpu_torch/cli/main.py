@@ -189,7 +189,9 @@ def main(argv: Optional[list] = None,
     if cfg.sample_num > 0:
         raise NotImplementedError(
             "--sample_num comes with utils/visualize (ROADMAP queue 1, item 9)")
-    loader, val = build_data(cfg)
+    # the data takes the recipe's crops (coco-voc: 448, validation 512);
+    # the JAX CLI builds its data before finalize, at the flags' crops
+    loader, val = build_data(cfg.finalize())
     iters = max(len(loader), 1)
 
     trainer = Trainer(cfg, iters_per_epoch=iters)

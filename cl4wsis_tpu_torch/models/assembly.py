@@ -20,14 +20,28 @@ from cl4wsis_tpu_torch.models.deeplab import (DeepLabV3Head,
 from cl4wsis_tpu_torch.models.panoptic import (IncrementalInstanceHead,
                                                PanopticDecoder)
 from cl4wsis_tpu_torch.models.resnet import ResNet
+from cl4wsis_tpu_torch.models.wide_resnet import (WRN38_STRUCTURE,
+                                                  WiderResNet38A2)
 from cl4wsis_tpu_torch.ops.resize import resize_bilinear
 
-# bottleneck ResNets only; the basic-block nets and WideResNet-38 come later
+# structure, bottleneck? (upstream models/resnet.py:126-138)
 _RESNET_STRUCTURES = {
-    "resnet50": (3, 4, 6, 3),
-    "resnet101": (3, 4, 23, 3),
-    "resnet152": (3, 8, 36, 3),
+    "resnet18": ((2, 2, 2, 2), False),
+    "resnet34": ((3, 4, 6, 3), False),
+    "resnet50": ((3, 4, 6, 3), True),
+    "resnet101": ((3, 4, 23, 3), True),
+    "resnet152": ((3, 8, 36, 3), True),
 }
+_WIDE_STRUCTURES = {"wider_resnet38_a2": WRN38_STRUCTURE}
+
+
+def backbone_channels(backbone: str) -> int:
+    """The channels of a backbone's res5."""
+    if "wide" in backbone:
+        return 4096
+    if backbone in _RESNET_STRUCTURES and not _RESNET_STRUCTURES[backbone][1]:
+        return 512  # basic-block nets (18/34)
+    return 2048
 
 
 class CL4WSISModel(nn.Module):
@@ -36,33 +50,40 @@ class CL4WSISModel(nn.Module):
     classes: per-step class counts, e.g. (16, 5) for VOC 15-5 step 1 (step
     0 includes background). pooling_size: eval-time ASPP window =
     crop // output_stride. backbone_structure overrides the block counts
-    (e.g. (1, 1, 1, 1) for tiny test nets). detach_instance: ``forward``
-    gives the instance branch detached backbone features, so its loss
-    trains no backbone weight.
+    (four for a ResNet, e.g. (1, 1, 1, 1) for tiny test nets; six for
+    WideResNet-38, whose output stride is always 8). detach_instance:
+    ``forward`` gives the instance branch detached backbone features, so
+    its loss trains no backbone weight. remat: each backbone block's
+    activations are recomputed in the backward.
     """
 
     def __init__(self, classes: Sequence[int], backbone: str = "resnet101",
                  output_stride: int = 16, pooling_size: Optional[int] = 32,
                  has_instance: bool = True, norm_act: str = "iabn_sync",
                  backbone_structure: Optional[Sequence[int]] = None,
-                 detach_instance: bool = False):
+                 detach_instance: bool = False, remat: bool = False):
         super().__init__()
-        if backbone not in _RESNET_STRUCTURES:
-            raise NotImplementedError(f"backbone {backbone!r} is not ported")
         self.classes = tuple(classes)
         self.has_instance = has_instance
         self.detach_instance = detach_instance
         norm = norm_factory(norm_act)
-        structure = tuple(backbone_structure or _RESNET_STRUCTURES[backbone])
-        self.body = ResNet(structure, output_stride, norm)
+        if backbone in _RESNET_STRUCTURES:
+            structure, bottleneck = _RESNET_STRUCTURES[backbone]
+            self.body = ResNet(tuple(backbone_structure or structure),
+                               output_stride, norm, bottleneck, remat)
+        elif backbone in _WIDE_STRUCTURES:
+            self.body = WiderResNet38A2(
+                tuple(backbone_structure or _WIDE_STRUCTURES[backbone]),
+                norm, remat)
+        else:
+            raise ValueError(f"unknown backbone {backbone!r}")
         self.head = DeepLabV3Head(self.body.out_channels, 256, 256,
                                   output_stride, pooling_size, norm)
         self.cls = IncrementalClassifier(256, self.classes)
         if has_instance:
-            feats = {"res2": 256, "res3": 512, "res4": 1024,
-                     "res5": self.body.out_channels}
             self.decoder = nn.Module()
-            self.decoder.instance_decoder = PanopticDecoder(feats)
+            self.decoder.instance_decoder = PanopticDecoder(
+                self.body.feature_channels)
             center_classes = list(self.classes)
             center_classes[0] -= 1  # background has no center channel
             self.instance_head = IncrementalInstanceHead(128, center_classes)
@@ -77,9 +98,10 @@ class CL4WSISModel(nn.Module):
         """x: (B, 3, H, W) normalised images -> dict of NCHW predictions:
         seg (C+1 logits), and with the instance branch center (C) and
         offset (2); at the network's strides (seg at the output stride,
-        center and offset at 1/4) unless `interpolate`. In train mode the
-        decoder's dropout draws from `generator`."""
-        features = self.body(x)
+        center and offset at res2's: 1/4 on a ResNet, 1/8 on WideResNet-38)
+        unless `interpolate`. In train mode the dropout of the body (if it
+        has any) and of the decoder draws from `generator`."""
+        features = self.body(x, generator)
         pred = {"seg": self.cls(self.head(features["res5"]))}
         if self.has_instance:
             ins_feats = ({k: v.detach() for k, v in features.items()}
@@ -87,9 +109,12 @@ class CL4WSISModel(nn.Module):
             pred.update(self.forward_instance(ins_feats, generator))
         return _upsample(pred, x.shape[2:]) if interpolate else pred
 
-    def forward_features(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """The backbone alone: dict(res1..res5)."""
-        return self.body(x)
+    def forward_features(self, x: torch.Tensor,
+                         generator: Optional[torch.Generator] = None
+                         ) -> Dict[str, torch.Tensor]:
+        """The backbone alone: dict(res1..res5); in train mode its dropout
+        draws from `generator`."""
+        return self.body(x, generator)
 
     def forward_instance(self, features: Dict[str, torch.Tensor],
                          generator: Optional[torch.Generator] = None
@@ -99,12 +124,14 @@ class CL4WSISModel(nn.Module):
         dec = self.decoder.instance_decoder(features, generator)
         return self.instance_head(dec)
 
-    def forward_seg(self, x: torch.Tensor, interpolate: bool = True
+    def forward_seg(self, x: torch.Tensor, interpolate: bool = True,
+                    generator: Optional[torch.Generator] = None
                     ) -> Tuple[Dict[str, torch.Tensor],
                                Dict[str, torch.Tensor]]:
         """The semantic branch only: ({"seg"}, {"body": res5,
-        "features": all backbone features})."""
-        features = self.body(x)
+        "features": all backbone features}); in train mode the body's
+        dropout draws from `generator`."""
+        features = self.body(x, generator)
         pred = {"seg": self.cls(self.head(features["res5"]))}
         if interpolate:
             pred = _upsample(pred, x.shape[2:])
@@ -120,7 +147,7 @@ def _upsample(pred: Dict[str, torch.Tensor], size) -> Dict[str, torch.Tensor]:
 def make_model(classes: Sequence[int], backbone: str = "resnet101",
                output_stride: int = 16, crop_size: int = 512,
                branch: str = "ins", detach_instance: bool = False,
-               norm_act: str = "iabn_sync",
+               norm_act: str = "iabn_sync", remat: bool = False,
                backbone_structure: Optional[Sequence[int]] = None
                ) -> CL4WSISModel:
     """Factory with the arguments of the JAX ``make_model``."""
@@ -128,4 +155,4 @@ def make_model(classes: Sequence[int], backbone: str = "resnet101",
                         pooling_size=crop_size // output_stride,
                         has_instance=(branch == "ins"), norm_act=norm_act,
                         backbone_structure=backbone_structure,
-                        detach_instance=detach_instance)
+                        detach_instance=detach_instance, remat=remat)

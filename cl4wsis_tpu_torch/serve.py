@@ -96,13 +96,17 @@ class Predictor:
                         **kw) -> "Predictor":
         """A predictor over the model of a checkpoint the trainer saved
         (``cl/ckpt.save_checkpoint``), built by ``make_model`` for
-        `classes`, `backbone` and `output_stride`, with as many blocks a
-        stage as the checkpoint holds (a ``--tiny`` run's too); `kw` go to
-        ``Predictor`` (``device``, ``val_flip``, ...)."""
+        `classes`, `backbone` (a ResNet, or ``wider_resnet38_a2`` with
+        `output_stride` 8) and `output_stride`, with as many blocks in each
+        module as the checkpoint holds (a ``--tiny`` run's too); `kw` go to
+        ``Predictor`` (``device``, ``val_flip``, ...). The norms of
+        ``--norm_act`` all normalise by their running stats at eval, so
+        the model is built with ABN."""
         state = load_checkpoint(path)["model"]
+        n_mods = 6 if "body.bn_out.weight" in state else 4
         blocks = tuple(sum(k.startswith(f"body.mod{i}.block") and
                            k.endswith(".convs.conv1.weight") for k in state)
-                       for i in range(2, 6))
+                       for i in range(2, 2 + n_mods))
         model = make_model(classes, backbone, output_stride, crop_size,
                            backbone_structure=blocks)
         return cls(model, state, dtype=dtype, **kw)

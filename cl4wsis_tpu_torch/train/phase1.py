@@ -109,8 +109,9 @@ def make_phase1_train_step(model: torch.nn.Module,
     compute in float32. batch: "image" (B, H, W, 3) normalised, "l1h"
     (B, C - 1) image-level labels. `angle_k` comes from a host generator
     seeded with `generator`'s seed (torch's global one without it) plus
-    the state's step count, the random-drop labels from `generator` (on
-    the device); ``draws={"angle_k": int, "labels_neg": (B, h, w)
+    the state's step count, the body's dropout masks (WideResNet's mod6
+    and mod7) and then the random-drop labels from `generator` (on the
+    device); ``draws={"angle_k": int, "labels_neg": (B, h, w)
     tensor}`` overrides either. The step updates `state` in place and returns the
     metrics loss, l_seg, l_cam_int, l_cam_new, l_loc, l_cls, lde and flac
     as tensors on the device.
@@ -135,7 +136,8 @@ def make_phase1_train_step(model: torch.nn.Module,
         with torch.no_grad(), autocast():
             out_old, feats_old = model_old.forward_seg(x, interpolate=False)
         with autocast():
-            pred, feats = model.forward_seg(x, interpolate=False)
+            pred, feats = model.forward_seg(x, interpolate=False,
+                                            generator=generator)
             if model.has_instance:   # its BN statistics move, as in JAX
                 model.forward_instance(feats["features"], generator)
         feat_body = feats["body"]

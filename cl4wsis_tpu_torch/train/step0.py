@@ -35,7 +35,7 @@ def make_step0_train_step(model: torch.nn.Module, seg_loss: str = "bce",
     parameters; the targets and the losses compute in float32. batch:
     "image" (B, H, W, 3) normalised, "seg" (B, H, W) int (255 ignore),
     "inst" (B, H, W) int dense instance ids. `generator` feeds the
-    decoder's dropout. The step updates `state` in place and returns the
+    dropout of the body (WideResNet's mod6 and mod7) and the decoder. The step updates `state` in place and returns the
     metrics loss, l_seg, l_center and l_offset as tensors on the device.
     """
     if seg_loss not in ("bce", "dce"):

@@ -41,6 +41,14 @@ from cl4wsis_tpu_torch.utils.logging import StepTimer
 from cl4wsis_tpu_torch.wss import PeakGenerator, PseudoLabeler
 
 
+def pretrained_name(backbone: str) -> str:
+    """The ImageNet checkpoint's file name under --pretrained_path, as the
+    JAX trainer looks for it."""
+    if "wide" in backbone:
+        return "wide_resnet38_ipabn_lr_256.pth.tar"
+    return f"{backbone}_iabn_sync.pth.tar"
+
+
 class Trainer:
     def __init__(self, cfg, iters_per_epoch: int):
         self.cfg = cfg = cfg.finalize(iters_per_epoch)
@@ -48,9 +56,6 @@ class Trainer:
             raise NotImplementedError(
                 "multi-GPU training is not ported yet (ROADMAP queue 1, "
                 "item 10)")
-        if cfg.remat:
-            raise NotImplementedError(
-                "--remat is not ported yet (ROADMAP queue 1, item 9)")
 
         self.classes = tasks.get_per_task_classes(cfg.dataset, cfg.task,
                                                   cfg.step)
@@ -61,10 +66,13 @@ class Trainer:
         # supervised (step-0) step, without the pseudo-label machinery
         self.supervised_pseudo = self.weakly and cfg.pseudo is not None
 
+        # --tiny cuts a ResNet to one block a stage; WideResNet-38 stays
+        # whole, as the JAX model ignores the structure for it
+        tiny = cfg.tiny and "wide" not in cfg.backbone
         mk = dict(backbone=cfg.backbone, output_stride=cfg.output_stride,
                   crop_size=cfg.crop_size, branch=cfg.branch,
-                  norm_act=cfg.norm_act,
-                  backbone_structure=(1, 1, 1, 1) if cfg.tiny else None)
+                  norm_act=cfg.norm_act, remat=cfg.remat,
+                  backbone_structure=(1, 1, 1, 1) if tiny else None)
         # fresh weights from the seed, leaving torch's global stream alone
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed)
@@ -92,7 +100,7 @@ class Trainer:
 
         if cfg.pretrained and not cfg.synthetic:
             pre = load_torch_pretrained(os.path.join(
-                cfg.pretrained_path, f"{cfg.backbone}_iabn_sync.pth.tar"))
+                cfg.pretrained_path, pretrained_name(cfg.backbone)))
             if pre is not None:
                 self.model.load_state_dict(
                     tree_merge(self.model.state_dict(), pre))

@@ -193,5 +193,3 @@ def test_validation_modes_and_test(tmp_path, root, monkeypatch):
 def test_cli_refuses_what_is_not_ported(tmp_path, root):
     with pytest.raises(NotImplementedError, match="item 9"):
         _run(STEP0 + ["--sample_num", "2"], root, tmp_path)
-    with pytest.raises(NotImplementedError, match="--remat .*item 9"):
-        _run(STEP0 + ["--remat", "true"], root, tmp_path)

@@ -495,3 +495,57 @@ def test_pinned_loader_batches_reach_the_card_without_pinning_again(
     assert not calls and got.keys() == {"image", "seg", "inst"}
     for k, v in got.items():
         assert v.is_cuda and torch.equal(v.cpu(), batch[k])
+
+
+def _blobby(rs, H, W, C, cell):
+    lo = rs.randint(1, C + 1, (H // cell + 1, W // cell + 1))
+    lo[rs.rand(*lo.shape) < 0.4] = 0
+    return np.kron(lo, np.ones((cell, cell), np.int64))[:H, :W]
+
+
+@pytest.mark.parametrize("kernel", ["cc", "topk", "run_totals", "stamp"])
+def test_kernels_at_the_coco_voc_shapes(dev, kernel):
+    """The COCO-to-VOC chain's shapes (WideResNet-38 at 448^2, 80 thing
+    classes of which 20 new, a 512 x 683 validation image in its 704^2
+    bucket): each wrapper launches its kernel once a call and equals the
+    plain version bit for bit."""
+    rs = np.random.RandomState(448)
+    N, NV = 448 * 448, 704 * 704
+    name = "cc_multilabel" if kernel == "cc" else kernel
+    if kernel == "cc":
+        maps = np.stack([_blobby(rs, 448, 448, 80, c) for c in (8, 16, 32,
+                                                                64)] * 4)
+        calls = [(torch.from_numpy(maps.astype(np.int32)), conn)
+                 for conn in (4, 8)]
+        v = _blobby(rs, 704, 704, 80, 16)
+        v[512:], v[:, 683:] = 0, 0
+        calls.append((torch.from_numpy(v.astype(np.int32)), 8))
+        fn, plain = cc.connected_components_multilabel, cc.cc_multilabel_plain
+    elif kernel == "topk":
+        cam = rs.rand(320, N).astype(np.float32) ** 8
+        nms = np.full((80, NV), -1.0, np.float32)
+        nms[:, rs.choice(NV, 300, replace=False)] = 0.9
+        calls = [(torch.from_numpy(cam), 25), (torch.from_numpy(cam), 16),
+                 (torch.from_numpy(nms), 32)]
+        fn, plain = topk.topk_hier, topk.topk_plain
+    elif kernel == "run_totals":
+        calls = [tuple(torch.from_numpy(np.ascontiguousarray(a, np.int32))
+                       for a in [np.sort(rs.randint(0, n_keys, (nb, n)), 1)]
+                       + [rs.randint(0, 512, (nb, n)) for _ in range(3)])
+                 for nb, n, n_keys in ((16, N, 40000), (1, NV, 3000))]
+        fn, plain = segsort.run_totals, segsort.run_totals_plain
+    else:
+        calls = [tuple(torch.from_numpy(a) for a in
+                       border_slots(rs, 16, K, 448, 448, C)) + (C, 6,
+                                                                  (448, 448))
+                 for K, C in ((480, 80), (64, 80), (50, 60))]
+        fn, plain = labelgen.stamp_centers_batched, labelgen.stamp_centers
+    for args in calls:
+        args = [a.to(dev) if torch.is_tensor(a) else a for a in args]
+        n = kernels.LAUNCHES[name]
+        got = fn(*args)
+        assert kernels.LAUNCHES[name] == n + 1
+        want = plain(*args)
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(g, w)

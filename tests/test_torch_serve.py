@@ -242,3 +242,31 @@ assert {"cl4wsis_tpu_torch.train.phase2", "cl4wsis_tpu_torch.ops.labelgen",
     p = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert p.returncode == 0, p.stdout + p.stderr
+
+
+@pytest.mark.parametrize("backbone,output_stride", [("resnet18", 16),
+                                                    ("resnet34", 8)])
+def test_from_checkpoint_builds_the_basic_block_nets(tmp_path, backbone,
+                                                     output_stride):
+    """from_checkpoint reads the blocks of a basic-block net's checkpoint
+    (one a stage here) and serves it bit-equal to a Predictor over the
+    model that wrote it."""
+    from cl4wsis_tpu_torch.cl.ckpt import save_checkpoint
+    torch.manual_seed(0)
+    model = make_model((3, 2), backbone, output_stride, 64,
+                       backbone_structure=(1, 1, 1, 1))
+    state = model.state_dict()
+    for k in state:                     # instances to serve
+        if k.startswith("instance_head.classifier.center.cls."):
+            state[k] = state[k] + 0.3 if k.endswith(".bias") else state[k]
+    path = str(tmp_path / "ck")
+    save_checkpoint(path, {"model": state})
+    kw = dict(device="cpu", dtype="float32", val_kernel=15)
+    served = Predictor.from_checkpoint(path, (3, 2), backbone, output_stride,
+                                       64, **kw)
+    assert served.model.body.out_channels == 512
+    img = (np.random.RandomState(1).rand(60, 44, 3) * 255).astype(np.uint8)
+    got, want = served(img), Predictor(model, state, **kw)(img)
+    for k in ("ins_map", "labels", "scores", "valid", "seg"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(want, k),
+                                      err_msg=k)

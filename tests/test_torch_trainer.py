@@ -24,8 +24,11 @@ from cl4wsis_tpu_torch.cli import config
 from cl4wsis_tpu_torch.cli.main import SyntheticLoader
 from cl4wsis_tpu_torch.train import schedule
 from cl4wsis_tpu_torch.train import trainer as trainer_mod
-from cl4wsis_tpu_torch.train.trainer import Trainer
+from cl4wsis_tpu_torch.models import assembly
+from cl4wsis_tpu_torch.models.wide_resnet import WiderResNet38A2
+from cl4wsis_tpu_torch.train.trainer import Trainer, pretrained_name
 
+WRN16 = (1, 1, 1, 1, 1, 1)
 TINY = (1, 1, 1, 1)
 COMMON = ["--synthetic", "true", "--tiny", "true", "--dataset", "voc",
           "--task", "15-5", "--batch_size", "2", "--crop_size", "64",
@@ -243,6 +246,60 @@ def test_iabn_ingest_matches_jax(tmp_path):
     assert all(body[k].shape == v.shape for k, v in got.items())
 
 
+def _upstream_wide_state_dict(rs):
+    """A WideResNet upstream-key state dict (as the iABN ImageNet pickle
+    has it: 'module.' prefix, classifier.fc, BN weights of either sign)
+    of the one-block-a-module body."""
+    sd = {}
+    for k, v in WiderResNet38A2(WRN16).state_dict().items():
+        if k.endswith("running_var"):
+            val = rs.uniform(0.5, 1.5, v.shape)
+        else:
+            val = rs.randn(*v.shape) * (0.1 if v.dim() == 4 else 1.0)
+        sd["module." + k] = torch.from_numpy(val.astype(np.float32))
+    sd["module.classifier.fc.weight"] = torch.zeros(10, 4096)
+    return sd
+
+
+def test_trainer_ingests_the_wide_resnet_pretrained_file(tmp_path,
+                                                         monkeypatch):
+    """The trainer of a wide backbone looks for
+    wide_resnet38_ipabn_lr_256.pth.tar (the JAX trainer's name; a ResNet's
+    file stays {backbone}_iabn_sync.pth.tar), converts the upstream keys
+    (block bn1 and bn_out are norms) as the JAX converter does, with
+    |weight|, and loads them into the body."""
+    monkeypatch.setitem(assembly._WIDE_STRUCTURES, "wider_resnet38_a2",
+                        WRN16)
+    assert pretrained_name("wider_resnet38_a2") == \
+        "wide_resnet38_ipabn_lr_256.pth.tar"
+    assert pretrained_name("resnet101") == "resnet101_iabn_sync.pth.tar"
+    sd = _upstream_wide_state_dict(np.random.RandomState(0))
+    got = ckpt.convert_torch_resnet(sd)
+    j = jckpt.convert_torch_resnet({k: v.numpy() for k, v in sd.items()})
+    want = ckpt.convert_jax_variables({
+        "params": {"body": j["params"]},
+        "batch_stats": {"body": j["batch_stats"]}})
+    assert got.keys() == want.keys()
+    assert "body.mod7.block1.bn1.weight" in got and "body.bn_out.bias" in got
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    pre = tmp_path / "pretrained"
+    pre.mkdir()
+    torch.save({"state_dict": sd}, pre / "wide_resnet38_ipabn_lr_256.pth.tar")
+    cfg = config.parse_config([
+        "--dataset", "coco-voc", "--task", "voc", "--step", "0",
+        "--pretrained", "true", "--pretrained_path", str(pre), "--tiny",
+        "true", "--crop_size", "48", "--device", "cpu", "--dtype",
+        "float32"])
+    body = Trainer(cfg, iters_per_epoch=1).model.state_dict()
+    assert all(torch.equal(body[k], v) for k, v in got.items())
+    assert (body["body.bn_out.weight"] >= 0).all()
+    assert (sd["module.bn_out.weight"] < 0).any()
+    os.remove(pre / "wide_resnet38_ipabn_lr_256.pth.tar")
+    fresh = Trainer(cfg, iters_per_epoch=1).model.state_dict()
+    assert not torch.equal(fresh["body.bn_out.bias"], body["body.bn_out.bias"])
+
+
 # ------------------------------------------------------- epoch means
 
 class _FakeLogger:
@@ -366,8 +423,8 @@ def test_step_choice(monkeypatch):
     with pytest.raises(NotImplementedError, match="peak_from"):
         _trainer(["--step", "1", "--weakly", "--phase", "2",
                   "--peak_from", "cam"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _trainer(["--remat"])
+    t = _trainer(["--remat"])         # --remat reaches the body
+    assert t.model.body.remat
     monkeypatch.setenv("CL4WSIS_MULTIHOST", "1")
     with pytest.raises(NotImplementedError, match="item 10"):
         _trainer([])
