@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's serving path, its step-0, phase-1 and
 phase-2 train steps, the CLI chain of the three on synthetic and on VOC
 data and the COCO-to-VOC recipe (WideResNet-38), validation and serving
-from a checkpoint on one NVIDIA card.
+from a checkpoint, and data-parallel training over several processes on
+one NVIDIA card.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -85,8 +86,24 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      4 for phase 1) on the card and on the CPU from the same weights,
      batch and draws; step 0 also with --norm_act abr and ain and on a
      full-depth ResNet-18;
- 14. print the kernels line (JSON) and, last, the ok line (JSON).
-Without a CUDA device it exits non-zero before printing any result.
+ 14. dist: (a) the CLI under torch.distributed.run at world 1 with
+     CL4WSIS_MULTIHOST=1 and NCCL, one process whose cli.main makes and
+     destroys the group in each run: step 0, phase 1, phase 2, phase 2
+     resumed with --continue_ckpt, and --test of the phase-2 checkpoint
+     with its center biases raised on 8 painted images; the step-0,
+     phase-1 and phase-2 epoch losses held to phase 8's. (b) 2 gloo ranks
+     sharing the card (NCCL takes one rank a card; this script spawns
+     them and makes the group, LOCAL_RANK 0 for both): 3 phase-2 and 3
+     step-0 steps at batch 8 each (global 16) at full width in bf16, and
+     the tiny model's step 0 and phase 2 at batch 2 each in float32 with
+     TF32 off, held against one process at the global batch on the card
+     (summed losses, per-tensor updates under SGD), each rank's kernel
+     launches counted; the CLI chain at 2 ranks with --tiny, and --test
+     of the same lifted checkpoint, whose merged validation must equal
+     world 1's;
+ 15. print the kernels line (JSON) and, last, the ok line (JSON).
+Without a CUDA device it exits non-zero before printing any result. The
+dist phase runs this file again as its worker processes, with arguments.
 """
 
 from __future__ import annotations
@@ -1433,12 +1450,13 @@ class ChainRecorder:
 
 def chain(root):
     """Phase 8: the CLI chain at full width; returns the launches of each
-    run and the phase-2 trainer."""
+    run, the phase-2 trainer and each run's epoch metrics and step times
+    (ms)."""
     step0_ckpt = os.path.join(root, "ck", "step", "voc-15-5-ov", "exp_0")
     p1_ckpt = os.path.join(root, "ck", "step", "voc-15-5-ov", "exp_p1_1")
     extra = {"phase 1": ["--step_ckpt", step0_ckpt],
              "phase 2": ["--step_ckpt", step0_ckpt, "--seg_ckpt", p1_ckpt]}
-    launches = {}
+    launches, seen = {}, {}
     rec = ChainRecorder()
     for run, argv in CHAIN_RUNS.items():
         argv = CHAIN_COMMON + argv + extra.get(run, []) + [
@@ -1464,6 +1482,7 @@ def chain(root):
         if not os.path.exists(path):
             raise AssertionError(f"chain {run}: no checkpoint {path}")
         steps = [round(v * 1e3, 3) for v in tr.step_timer.times]
+        seen[run] = {"epoch": dict(m), "steps_ms": steps}
         log(f"chain {run}: main() {wall:.3f} s, epoch {n} batches "
             f"{m['epoch_time_s']:.3f} s, loss {m['loss']:.6f}, step times "
             f"ms {steps} (steps 2-3 under torch.profiler), checkpoint "
@@ -1495,7 +1514,7 @@ def chain(root):
         f"{len(old)} tensors step 0's, bit for bit")
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, t2
+    return launches, t2, seen
 
 
 def painted_samples(rs, n=8, n_inst=8):
@@ -2114,8 +2133,8 @@ def coco_voc_chain(root):
     torch.profiler; from_checkpoint on the phase-2 checkpoint with center
     biases +0.3, bit-equal to the trainer's model; the phase-2 model's
     validation with those biases through the kernels and the plain
-    versions (equal). Returns the launches of each run and of the serving
-    from the checkpoint."""
+    versions (equal; 8 of the 16 validation images). Returns the launches
+    of each run and of the serving from the checkpoint."""
     data = os.path.join(root, "data")
     anns = write_mini_coco(data) + write_mini_voc(data)
     check_native(anns)
@@ -2161,7 +2180,8 @@ def coco_voc_chain(root):
         t2, t2.default_ckpt_path(), root, COCO_VOC, WRN_KW,
         variants=("center bias +0.3",), flips=(False,))
     t2.model.load_state_dict(lifted)
-    validate_voc(t2, samples, "coco-voc, center bias +0.3")
+    # 8 of the 16 images, to pay for the dist phase (PERF.md section 4)
+    validate_voc(t2, samples[:8], "coco-voc, center bias +0.3")
     del t2
     gc.collect()
     torch.cuda.empty_cache()
@@ -2354,6 +2374,555 @@ def card_vs_cpu():
          torch.backends.cuda.matmul.allow_tf32) = saved
 
 
+# ------------------------------------------------------------- dist phase
+
+DIST_RANKS = 2
+B_RANK = B // DIST_RANKS
+DIST_STEPS = 3
+DIST_LR = 1e-4
+# 2 ranks x 8 against one process at 16, both on the card, SGD (an update
+# linear in the gradient): the first step's loss and update, from the same
+# weights (the later steps run on, but SGD at this rate diverges from
+# random weights, 75 -> 1249 -> 41606 in phase 2, so they are not held).
+# In bf16 the loss is held (limit fixed before the first run); the updates
+# are printed beside one process's own with its ABN sums taken in two
+# halves, not held: an ABN statistic summed in another order differs in
+# its last float32 bits, which flips the bf16 rounding of some outputs, and
+# at random weights that moves a tensor's update by as much as itself
+# (PERF.md section 6). The float32 run below holds the updates.
+DIST_BF16_TOL = {"loss (relative)": 2e-2}
+# the same at card_vs_cpu's tiny depth, 64^2, batch 4, float32, TF32 off,
+# at card_vs_cpu's limits: at batch 4 the tiny step 0 is ill-conditioned
+# (BN over 2 pooled values a rank), and one process's own first update
+# moves by up to 1.0e-2 (median 1.3e-3) when only its ABN sums are taken
+# in two halves (CPU, float32)
+DIST_F32_TOL = {"loss (relative)": 1e-4, "parameter updates (relative)": 0.05}
+# world 1 under torchrun and NCCL against the chain phase on the same seed:
+# bf16 cuDNN backward kernels are not bitwise deterministic run to run
+DIST_CHAIN_RTOL = 2e-2
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sgd_state(model, group_scale, group_fn=None):
+    kw = {} if group_fn is None else {"group_fn": group_fn}
+    opt = schedule.make_optimizer(model, "sgd", group_scale=group_scale, **kw)
+    return TrainState(model, opt, schedule.make_schedule("poly", DIST_LR,
+                                                         10000))
+
+
+def dist_steps(what, step, state, batches, dev, per_step, seed=3):
+    """DIST_STEPS steps on this rank's rows of the global `batches` (every
+    rank draws from a generator seeded alike): each step's metrics (this
+    rank's shares), times (ms), the kernel launches, the all-reduces a step
+    makes and the ABN layers whose statistics were summed, and the
+    parameters before, after the first step and after the last (on the
+    CPU)."""
+    from cl4wsis_tpu_torch.core import abn, dist
+    params = dict(state.model.named_parameters())
+    before = {k: v.detach().cpu().clone() for k, v in params.items()}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    counts = {"all_reduce": 0, "abn": 0}
+    real_ar, real_stats = torch.distributed.all_reduce, abn.batch_stats
+
+    def counting_ar(*a, **kw):
+        counts["all_reduce"] += 1
+        return real_ar(*a, **kw)
+
+    def counting_stats(*a):
+        counts["abn"] += 1
+        return real_stats(*a)
+    metrics, times, per = [], [], []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    torch.distributed.all_reduce, abn.batch_stats = counting_ar, counting_stats
+    try:
+        for i in range(DIST_STEPS):
+            mine = {k: dist.rows_of(v)
+                    for k, v in batches[i % len(batches)].items()}
+            counts.update(all_reduce=0, abn=0)
+            t = time.perf_counter()
+            m = step(state, mine, gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+            per.append(dict(counts))
+            if i == 0:
+                first = {k: v.detach().cpu().clone()
+                         for k, v in params.items()}
+    finally:
+        torch.distributed.all_reduce, abn.batch_stats = real_ar, real_stats
+    launches = dict(kernels.LAUNCHES)
+    want = {k: v * DIST_STEPS for k, v in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"{what}: rank {dist.rank()} launches "
+                             f"{launches}, expected {want}")
+    after = {k: v.detach().cpu().clone() for k, v in params.items()}
+    return {"metrics": metrics, "times_ms": times, "launches": launches,
+            "collectives": per, "before": before, "first": first,
+            "after": after}
+
+
+def dist_phase2(dev, surgery=None):
+    """The phase-2 step of the chip phase 5 set-up (batch 16 global) with
+    SGD; `surgery` (pseudo_thresh, class) as the one process chose it, so
+    that every rank applies the same."""
+    model, model_old, pl, pg, _, batches = build_training(dev)
+    if surgery is None:
+        thresh, pick = choose_pseudo_thresh(model, pl, pg, batches)
+        surgery = (thresh, pick[1])
+    else:
+        with torch.no_grad():
+            model.cls[1].bias[surgery[1] - (OLD - 1)] += 10.0
+    step = phase2.make_phase2_train_step(model, model_old, pl, pg, OLD,
+                                         pseudo_thresh=surgery[0],
+                                         device=dev, dtype="bfloat16")
+    state = sgd_state(model, {"body": 0.0, "seg": 0.0, "instance": 10.0,
+                              "pseudo": 0.0})
+    return dist_steps("phase 2", step, state, batches, dev, PER_STEP), surgery
+
+
+def dist_step0(dev):
+    torch.manual_seed(0)
+    model = make_model((OLD,), "resnet101", 16, S)
+    step = step0.make_step0_train_step(model, sigma=6, max_inst=MAX_INST,
+                                       device=dev, dtype="bfloat16")
+    state = sgd_state(model, None)
+    return dist_steps("step 0", step, state, step0_batches(dev, 2), dev,
+                      PER_STEP0)
+
+
+def dist_tiny(dev):
+    """Step 0 and phase 2 of the tiny model at batch 4, 64^2, float32 with
+    TF32 off, dropout from the step's generator (so at the global shape)."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        torch.manual_seed(0)
+        m0 = make_model((3,), "resnet101", 16, 64, backbone_structure=TINY)
+        st0 = step0.make_step0_train_step(m0, device=dev)
+        b = next(synthetic_batches(4, 64, 2, seed=4))
+        out = {"step 0": dist_steps(
+            "tiny step 0", st0, sgd_state(m0, None),
+            [{k: torch.from_numpy(b[k]).to(dev) for k in ("image", "seg",
+                                                          "inst")}],
+            dev, PER_STEP0)}
+        torch.manual_seed(0)
+        model = make_model((3, 2), "resnet101", 16, 64,
+                           backbone_structure=TINY).to(dev)
+        model_old = make_model((3,), "resnet101", 16, 64,
+                               backbone_structure=TINY)
+        pl, pg = PseudoLabeler(5).to(dev), PeakGenerator(4, 2).to(dev)
+        rs = np.random.RandomState(3)
+        images = torch.from_numpy(
+            (rs.randn(4, 64, 64, 3) * 0.5).astype(np.float32)).to(dev)
+        l1h = torch.ones((4, 4), device=dev)
+        l1h[:, 1] = 0.0
+        with torch.no_grad():     # tests/test_torch_dist_steps.py's surgery
+            pg.extra_conv4.bias += 0.5
+            for m in (model, pl, pg):
+                m.eval()
+            _, feats = model.forward_seg(images.permute(0, 3, 1, 2),
+                                         interpolate=False)
+            _, cam = pg(pl(feats["body"]), label=l1h)
+            cam = resize_bilinear(smoothing(cam)[:, 2:], (64, 64))
+            conf = peak_extract_nchw(cam, kernel=15, k=2)[0].cpu().numpy()
+            gaps = conf[:, :, 0] - conf[:, :, 1]
+            bi, c = np.unravel_index(int(np.argmax(gaps)), gaps.shape)
+            thresh = float((conf[bi, c, 0] + conf[bi, c, 1]) / 2)
+            model.cls[1].bias[c] += 10.0
+            model.instance_head.classifier.center.cls[1].bias += 0.5
+        st2 = phase2.make_phase2_train_step(model, model_old, pl, pg, 3,
+                                            pseudo_thresh=thresh,
+                                            nms_kernel=15, device=dev)
+        out["phase 2"] = dist_steps(
+            "tiny phase 2", st2, sgd_state(model, {
+                "body": 0.0, "seg": 0.0, "instance": 10.0, "pseudo": 0.0}),
+            [{"image": images, "l1h": l1h}], dev, PER_STEP)
+        return out
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def lift_centers(path, lifted_path):
+    """A copy of a checkpoint with the center heads' biases raised by 0.3,
+    so that validation of random weights finds instances."""
+    from cl4wsis_tpu_torch.cl.ckpt import save_checkpoint
+    blob = load_checkpoint(path)
+    for k, v in blob["model"].items():
+        if k.startswith("instance_head.classifier.center.cls.") and \
+                k.endswith(".bias"):
+            v += 0.3
+    save_checkpoint(lifted_path, blob)
+
+
+def dist_cli(root, runs, val, recorder, common=CHAIN_COMMON):
+    """cli.main for each (name, argv) of `runs` on synthetic batches with
+    `val` (or None) as the validation set; per run the process group its
+    trainer saw (world, backend, device) and whether one is left after
+    main, its epochs, step times (ms), save and load times (s), the
+    launches and the validation results."""
+    from cl4wsis_tpu_torch.core import dist
+    real_build, real_val = cli.build_data, cli.validate_instances
+    results = []
+
+    def keeping(*a):
+        results.append(real_val(*a))
+        return results[-1]
+    cli.build_data = lambda cfg: (cli.SyntheticLoader(cfg), val)
+    cli.validate_instances = keeping
+    out = {}
+    try:
+        for name, argv in runs:
+            results.clear()
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            n = len(recorder.made)
+            group = []
+
+            def watch(trainer):
+                recorder(trainer)
+                group.extend([dist.world(), torch.distributed.get_backend()
+                              if torch.distributed.is_initialized() else None,
+                              str(trainer.device)])
+            if cli.main(common + argv + [
+                    "--checkpoint", os.path.join(root, "ck"), "--visualize",
+                    "false", "--profile_dir", os.path.join(root, "trace")],
+                    on_trainer=watch) != 0:
+                raise AssertionError(f"{name}: main() failed")
+            torch.cuda.synchronize()
+            tr = recorder.made[n]
+            out[name] = {"group": group,
+                         "group_left": torch.distributed.is_initialized(),
+                         "epochs": tr.epochs, "times": dict(tr.times),
+                         "steps_ms": [v * 1e3 for v in
+                                      (tr.step_timer.times if tr.step_timer
+                                       else [])],
+                         "launches": dict(kernels.LAUNCHES),
+                         "val": list(results)}
+            recorder.made[n] = None       # the models go
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        cli.build_data, cli.validate_instances = real_build, real_val
+    return out
+
+
+def dist_world1(root, val_path, out_path):
+    """Under torchrun at world 1 with CL4WSIS_MULTIHOST=1: step 0, phase 1,
+    phase 2 and phase 2 resumed (--epochs 2 --continue_ckpt), then --test
+    of the phase-2 checkpoint with raised center biases on 8 painted
+    images. Each cli.main makes the NCCL group and destroys it (at world 1
+    no other rank can meet a former group's keys in torchrun's store)."""
+    ck = os.path.join(root, "ck", "step", "voc-15-5-ov")
+    s0, p1, p2 = (os.path.join(ck, n) for n in ("exp_0", "exp_p1_1",
+                                                "exp_p2_1"))
+    extra = {"step 0": [], "phase 1": ["--step_ckpt", s0],
+             "phase 2": ["--step_ckpt", s0, "--seg_ckpt", p1]}
+    runs = [(r, CHAIN_RUNS[r] + extra[r]) for r in extra]
+    runs.append(("phase 2 resumed", CHAIN_RUNS["phase 2"] + extra[
+        "phase 2"] + ["--epochs", "2", "--continue_ckpt", "true"]))
+    out = dist_cli(root, runs, None, ChainRecorder())
+    lift_centers(p2, os.path.join(ck, "lifted"))
+    out.update(dist_cli(root, [("test", CHAIN_RUNS["phase 2"] + [
+        "--step_ckpt", s0, "--test", "--ckpt", os.path.join(ck, "lifted")])],
+        torch.load(val_path, weights_only=False), ChainRecorder()))
+    torch.save(out, out_path)
+
+
+def dist_rank(spec_path, out_prefix):
+    """One of DIST_RANKS ranks sharing the card: the gloo group made here
+    (NCCL takes one rank a card), LOCAL_RANK 0 for every rank."""
+    from cl4wsis_tpu_torch.core import dist
+    torch.distributed.init_process_group(
+        "gloo", rank=int(os.environ["RANK"]),
+        world_size=int(os.environ["WORLD_SIZE"]))
+    try:
+        if dist.init_from_env("cuda"):
+            raise AssertionError("init_from_env made a second group")
+        spec = torch.load(spec_path, weights_only=False)
+        dev = dist.local_device("cuda")
+        kernels.lib()
+        res = {}
+        t = time.perf_counter()
+        res["phase 2"], _ = dist_phase2(dev, spec["surgery"])
+        res["step 0"] = dist_step0(dev)
+        res["tiny"] = dist_tiny(dev)
+        res["steps_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        root = spec["root"]
+        s0 = os.path.join(root, "ck", "step", "voc-15-5-ov", "exp_0")
+        p1 = os.path.join(root, "ck", "step", "voc-15-5-ov", "exp_p1_1")
+        runs = [("step 0", CHAIN_RUNS["step 0"]),
+                ("phase 1", CHAIN_RUNS["phase 1"] + ["--step_ckpt", s0]),
+                ("phase 2", CHAIN_RUNS["phase 2"] + ["--step_ckpt", s0,
+                                                     "--seg_ckpt", p1])]
+        common = CHAIN_COMMON + ["--batch_size", str(B_RANK), "--tiny",
+                                 "true"]
+        val = torch.load(spec["val"], weights_only=False)
+        res["chain"] = dist_cli(root, runs, None, ChainRecorder(), common)
+        res["chain"].update(dist_cli(root, [("test", CHAIN_RUNS["phase 2"] + [
+            "--step_ckpt", spec["step0_ckpt"], "--test", "--ckpt",
+            spec["lifted"], "--tiny", "false"])], val, ChainRecorder(),
+            common))
+        res["chain_s"] = time.perf_counter() - t
+        torch.save(res, f"{out_prefix}{dist.rank()}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+DIST_WORKERS = {"dist-world1": dist_world1, "dist-rank": dist_rank}
+
+
+def first_update_readings(one, other):
+    """update_reading of `other`'s first update against `one`'s, for each
+    tensor `one`'s first step moved."""
+    return {k: update_reading(one["before"][k], t, other["first"][k])
+            for k, t in one["first"].items()
+            if not torch.equal(t, one["before"][k])}
+
+
+@contextlib.contextmanager
+def abn_sums_in_halves():
+    """In one process, ABN's float32 batch sums taken over the two halves
+    of the batch and added, as 2 ranks take them: the order of the sums is
+    all that changes."""
+    from cl4wsis_tpu_torch.core import abn
+    real = abn.batch_stats
+
+    def halves(xf):
+        C, dims, h = xf.shape[1], (0, 2, 3), xf.shape[0] // 2
+        sums = sum(torch.cat([p.sum(dims), torch.square(p).sum(dims),
+                              p.new_full((1,), p.numel() // C)])
+                   for p in (xf[:h], xf[h:]))
+        mean = sums[:C] / sums[-1]
+        return mean, sums[C:2 * C] / sums[-1] - torch.square(mean), sums[-1]
+    abn.batch_stats = halves
+    try:
+        yield
+    finally:
+        abn.batch_stats = real
+
+
+def compare_steps(what, one, ranks, tol, floor=None):
+    """The ranks' summed first-step loss and rank 0's first update against
+    the one process's (update_reading per tensor); both ranks must end
+    equal after every step. `tol` names what is held; with `floor` (one
+    process with abn_sums_in_halves) its readings against `one` are
+    printed beside the ranks'."""
+    m = one["metrics"][0]
+    got = sum(r["metrics"][0]["loss"] for r in ranks)
+    err = {"loss (relative)": abs(got - m["loss"]) / abs(m["loss"])}
+    for k, t in ranks[0]["after"].items():
+        if not torch.equal(t, ranks[1]["after"][k]):
+            raise AssertionError(f"{what}: the ranks' {k} differ")
+    rd = first_update_readings(one, ranks[0])
+    if not rd:
+        raise AssertionError(f"{what}: no parameter moved")
+    worst = max(rd, key=rd.get)
+    err["parameter updates (relative)"] = rd[worst]
+    text = (f"2 ranks against one process, {what}: step losses "
+            f"{[round(x['loss'], 6) for x in one['metrics']]} (one) / "
+            f"{[round(sum(r['metrics'][i]['loss'] for r in ranks), 6) for i in range(len(one['metrics']))]}"
+            f" (ranks); first step: {len(rd)} parameter tensors moved, "
+            f"update reading median {float(np.median(list(rd.values()))):.3e}"
+            f", largest {rd[worst]:.3e} ({worst}); loss (relative) "
+            f"{err['loss (relative)']:.3e}")
+    if floor is not None:
+        fl = first_update_readings(one, floor)
+        text += (f"; one process with its ABN sums in two halves against "
+                 f"one process: loss (relative) "
+                 f"{abs(floor['metrics'][0]['loss'] - m['loss']) / abs(m['loss']):.3e}, update reading median "
+                 f"{float(np.median(list(fl.values()))):.3e}, largest "
+                 f"{max(fl.values()):.3e}")
+    log(text + "; held: " + ", ".join(f"{k} <= {v:.0e}"
+                                      for k, v in tol.items()))
+    over = [k for k, v in tol.items() if not err[k] <= v]
+    if over:
+        raise AssertionError(f"2 ranks against one process, {what}: {over} "
+                             f"above the tolerance")
+
+
+def dist_phase(chain_seen, rs):
+    """Phase 14: data-parallel runs. (a) The CLI chain under torchrun at
+    world 1 and NCCL (step 0, phase 1, phase 2, a resumed phase 2) and
+    --test of the lifted phase-2 checkpoint on 8 painted images; held
+    against the chain phase. (b) DIST_RANKS gloo ranks sharing the card at batch 8
+    each: 3 phase-2 and 3 step-0 steps at full width in bf16 and tiny
+    steps in float32, held against one process at batch 16 (4) on the
+    card; the tiny chain at 2 ranks and --test of the same checkpoint,
+    held against (a). Returns each kernel's per-rank launches."""
+    me = os.path.abspath(__file__)
+    env = dict(os.environ, CL4WSIS_MULTIHOST="1",
+               PYTHONPATH=os.pathsep.join(filter(None, [
+                   os.path.dirname(me),
+                   os.environ.get("PYTHONPATH")])))
+    with tempfile.TemporaryDirectory() as root:
+        val_path = os.path.join(root, "val.pt")
+        torch.save(painted_samples(rs), val_path)
+        a_root = os.path.join(root, "a")
+        # (a) world 1, NCCL, through torchrun
+        t = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+             "1", "--master_addr", "127.0.0.1", "--master_port",
+             str(free_port()), me, "dist-world1", a_root, val_path,
+             os.path.join(root, "a.pt")],
+            env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t
+        if p.returncode != 0:
+            raise AssertionError(f"the world-1 chain failed ({p.returncode}):"
+                                 f"\n{p.stdout[-4000:]}\n{p.stderr[-6000:]}")
+        a = torch.load(os.path.join(root, "a.pt"), weights_only=False)
+        log(f"world 1 under torchrun, NCCL: step 0, phase 1, phase 2, phase 2"
+            f" resumed and --test in {wall:.1f} s (one process)")
+        for run in ("step 0", "phase 1", "phase 2", "phase 2 resumed",
+                    "test"):
+            if a[run]["group"] != [1, "nccl", "cuda:0"] or \
+                    a[run]["group_left"]:
+                raise AssertionError(f"world-1 {run}: group "
+                                     f"{a[run]['group']}, left after main "
+                                     f"{a[run]['group_left']}")
+        for run in ("step 0", "phase 1", "phase 2"):
+            got, want = a[run]["epochs"][0], chain_seen[run]["epoch"]
+            err = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-12)
+                      for k in want if k.startswith("l"))
+            med = float(np.median(a[run]["steps_ms"][1:]))
+            ref = float(np.median(chain_seen[run]["steps_ms"][1:]))
+            log(f"world-1 {run}: loss {got['loss']:.6f} against the chain "
+                f"phase's {want['loss']:.6f} (largest relative difference "
+                f"of the losses {err:.3e}, tolerance {DIST_CHAIN_RTOL:.0e}); "
+                f"step median {med:.3f} ms against {ref:.3f} ms (steps 2-n,"
+                f" steps 2-3 profiled); launches {a[run]['launches']}; "
+                f"save {a[run]['times'].get('save', 0.0):.3f} s")
+            if not err <= DIST_CHAIN_RTOL:
+                raise AssertionError(f"world-1 {run} differs from the chain")
+        res = a["phase 2 resumed"]["epochs"]
+        if len(res) != 1 or res[0]["n_batches"] != 4:
+            raise AssertionError("the resumed phase 2 did not train epoch 1 "
+                                 "alone")
+        test_a = a["test"]["val"][0]
+        log(f"world-1 --test of the lifted phase-2 checkpoint: map "
+            f"{test_a['map']:.6f}, map50 {test_a['map50']:.6f}, truncated "
+            f"{test_a['truncated_centers']}; launches {a['test']['launches']}")
+
+        # (b) the one-process references on the card, then the ranks
+        dev = torch.device("cuda")
+        t = time.perf_counter()
+        one_p2, surgery = dist_phase2(dev)
+        one_s0 = dist_step0(dev)
+        one_tiny = dist_tiny(dev)
+        with abn_sums_in_halves():
+            floor_p2, _ = dist_phase2(dev, surgery)
+            floor_s0 = dist_step0(dev)
+            floor_tiny = dist_tiny(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"one-process references (3 + 3 full-width steps at batch {B}, "
+            f"tiny steps, the full-width steps again with the ABN sums in "
+            f"halves): {time.perf_counter() - t:.1f} s")
+        spec_path = os.path.join(root, "spec.pt")
+        ck = os.path.join(a_root, "ck", "step", "voc-15-5-ov")
+        torch.save({"surgery": surgery, "root": os.path.join(root, "b"),
+                    "val": val_path, "step0_ckpt": os.path.join(ck, "exp_0"),
+                    "lifted": os.path.join(ck, "lifted")}, spec_path)
+        port = free_port()
+        t = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, me, "dist-rank", spec_path,
+             os.path.join(root, "rank")],
+            env=dict(env, RANK=str(r), WORLD_SIZE=str(DIST_RANKS),
+                     LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(port)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(DIST_RANKS)]
+        try:
+            logs = [p.communicate(timeout=900)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for r, (p, out) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"rank {r} failed ({p.returncode}):\n"
+                                     f"{out[-6000:]}")
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"),
+                            weights_only=False) for r in range(DIST_RANKS)]
+        log(f"{DIST_RANKS} gloo ranks on one card: {time.perf_counter() - t:.1f}"
+            f" s (steps {ranks[0]['steps_s']:.1f} s, chain and --test "
+            f"{ranks[0]['chain_s']:.1f} s a rank)")
+        for what, one, key, floor in (
+                ("phase-2 steps, bf16", one_p2, "phase 2", floor_p2),
+                ("step-0 steps, bf16", one_s0, "step 0", floor_s0)):
+            rr = [r[key] for r in ranks]
+            compare_steps(what, one, rr, DIST_BF16_TOL, floor)
+            log(f"  {what}: step ms per rank "
+                f"{[[round(v, 3) for v in r['times_ms']] for r in rr]}, "
+                f"median (steps 2-3) "
+                f"{[float(np.median(r['times_ms'][1:])) for r in rr]} against"
+                f" one process at {B} "
+                f"{float(np.median(one['times_ms'][1:])):.3f}; launches per "
+                f"rank {[r['launches'] for r in rr]}; all-reduces a step "
+                f"{rr[0]['collectives']} (ABN layers summed: 'abn')")
+        for key in ("step 0", "phase 2"):
+            compare_steps(f"tiny {key}, float32 (TF32 off)", one_tiny[key],
+                          [r["tiny"][key] for r in ranks], DIST_F32_TOL,
+                          floor_tiny[key])
+        # the tiny chain at 2 ranks: the same epochs on both ranks, rank 1's
+        # save is its wait at the barrier; --test against world 1's
+        c0, c1 = ranks[0]["chain"], ranks[1]["chain"]
+        for run in ("step 0", "phase 1", "phase 2", "test"):
+            for c in (c0, c1):      # main kept the ranks' own group
+                if c[run]["group"] != [2, "gloo", "cuda:0"] or \
+                        not c[run]["group_left"]:
+                    raise AssertionError(f"2-rank {run}: group "
+                                         f"{c[run]['group']}")
+        for run in ("step 0", "phase 1", "phase 2"):
+            e0, e1 = c0[run]["epochs"][0], c1[run]["epochs"][0]
+            if {k: v for k, v in e0.items() if not k.startswith(
+                    ("epoch_time", "step_"))} != {
+                    k: v for k, v in e1.items() if not k.startswith(
+                        ("epoch_time", "step_"))}:
+                raise AssertionError(f"2-rank chain {run}: the ranks log "
+                                     f"different epochs")
+            want = {k: v * e0["n_batches"] for k, v in
+                    CHAIN_PER_STEP[run].items()}
+            if c0[run]["launches"] != want or c1[run]["launches"] != want:
+                raise AssertionError(f"2-rank chain {run}: launches "
+                                     f"{c0[run]['launches']} / "
+                                     f"{c1[run]['launches']}, expected {want}")
+            log(f"2-rank tiny chain {run}: loss {e0['loss']:.6f} on both "
+                f"ranks; steps ms rank 0 "
+                f"{[round(v, 3) for v in c0[run]['steps_ms']]}; save "
+                f"{c0[run]['times']['save']:.3f} s on rank 0, barrier wait "
+                f"{c1[run]['times']['save']:.3f} s on rank 1; launches per "
+                f"rank {c0[run]['launches']}")
+        t0, t1 = c0["test"]["val"][0], c1["test"]["val"][0]
+        if not (same_results(t0, t1) and same_results(t0, test_a)):
+            raise AssertionError(f"--test at 2 ranks {t0} / {t1} differs "
+                                 f"from world 1's {test_a}")
+        log(f"--test of the lifted checkpoint at 2 ranks (4 + 4 images): "
+            f"map {t0['map']:.6f}, equal to world 1's on both ranks; "
+            f"launches per rank {c0['test']['launches']} / "
+            f"{c1['test']['launches']}")
+    launches = {}
+    for name in kernels.LAUNCHES:
+        launches[name] = {
+            "phase 2": [r["phase 2"]["launches"][name] for r in ranks],
+            "step 0": [r["step 0"]["launches"][name] for r in ranks]}
+        if PER_STEP[name] and min(launches[name]["phase 2"]) < 1 or \
+                PER_STEP0[name] and min(launches[name]["step 0"]) < 1:
+            raise AssertionError(f"kernel {name} was not launched on a rank")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2382,7 +2951,7 @@ def main() -> int:
     phase1_launches = train_phase1(dev)
     t = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
-        chain_launches, trainer = chain(root)
+        chain_launches, trainer, chain_seen = chain(root)
     log(f"chain phase: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     validate_launches = validate(trainer, rs)
@@ -2400,6 +2969,9 @@ def main() -> int:
     wrn_step0(dev)
     log(f"WideResNet-38 step-0 remat phase: {time.perf_counter() - t:.1f} s")
     card_vs_cpu()
+    t = time.perf_counter()
+    dist_launches = dist_phase(chain_seen, rs)
+    log(f"dist phase: {time.perf_counter() - t:.1f} s")
     log(f"all phases passed in {time.perf_counter() - t_phases:.1f} s after "
         f"the kernel build")
 
@@ -2447,6 +3019,7 @@ def main() -> int:
                          {run: ln[name] for run, ln in cv_launches.items()}),
                      "launches_from_checkpoint_coco_voc":
                          cv_serve_launches[name],
+                     "launches_dist": dist_launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": "bytes",
@@ -2464,4 +3037,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1:       # a process the dist phase starts
+        DIST_WORKERS[sys.argv[1]](*sys.argv[2:])
+        sys.exit(0)
     sys.exit(main())

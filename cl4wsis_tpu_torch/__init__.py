@@ -1,7 +1,8 @@
 """cl4wsis_tpu_torch: the PyTorch/CUDA port of cl4wsis_tpu for NVIDIA Hopper.
 
 The layout mirrors the JAX package so each counterpart is easy to find:
-  core/    ABN (eval and train mode) and the norm factory
+  core/    ABN (eval and train mode), the norm factory, --remat and the
+           data-parallel runs over several processes (dist.py)
   models/  ResNet backbone, DeepLab-v3 head, Panoptic-DeepLab decoder/head
   wss/     PseudoLabeler, PeakGenerator and the weak-supervision losses
   ops/     instance post-processing, the phase-2 label factory, the step-0
@@ -24,8 +25,8 @@ The layout mirrors the JAX package so each counterpart is easy to find:
 
 The ported paths are serving, the three train steps (step 0, phase 1,
 phase 2) and the CLI chain over them on VOC, COCO, COCO-to-VOC or
-synthetic data, with checkpoints and validation; WideResNet-38 and
-multi-GPU runs are not ported yet.
+synthetic data, on one card or data-parallel over several, with
+checkpoints and validation; visualisation is not ported yet.
 The package never imports JAX or the JAX package.
 """
 

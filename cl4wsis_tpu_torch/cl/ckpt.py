@@ -32,6 +32,8 @@ from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from cl4wsis_tpu_torch.core import dist
+
 # ---------------------------------------------------------------- merging
 
 
@@ -94,16 +96,20 @@ def expand_for_new_step(new_state: Dict[str, torch.Tensor],
 def save_checkpoint(path: str, tree: Dict[str, Any]) -> None:
     """``torch.save`` of a nested dict of state dicts and numbers, written
     beside `path` and renamed into place, so a reader never finds half a
-    file."""
-    path = os.path.abspath(path)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = path + ".tmp"
-    torch.save(tree, tmp)
-    os.replace(tmp, path)
+    file. Over several ranks rank 0 writes and every rank waits at a
+    barrier until it has, so no rank reads the file before it is whole."""
+    if dist.is_main():
+        path = os.path.abspath(path)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save(tree, tmp)
+        os.replace(tmp, path)
+    dist.barrier()
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
-    """A checkpoint of :func:`save_checkpoint`, its tensors on the CPU."""
+    """A checkpoint of :func:`save_checkpoint`, its tensors on the CPU
+    (every rank reads it and copies it to its own card)."""
     return torch.load(os.path.abspath(path), map_location="cpu",
                       weights_only=True)
 

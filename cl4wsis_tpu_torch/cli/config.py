@@ -206,8 +206,8 @@ def _strbool(v: str) -> bool:
 # Reference flags that map onto a differently-named Config field, plus
 # reference flags accepted and ignored so that reference command lines parse
 # unchanged (reference argparser.py:43-48 for local_rank, DDP process
-# plumbing that comes with multi-GPU runs, and :107/:123 for the
-# store_false/store_true inversions).
+# plumbing: torchrun puts LOCAL_RANK in the environment, which core/dist
+# reads, and :107/:123 for the store_false/store_true inversions).
 _REF_ALIASES = {"random_seed": "seed"}
 _REF_IGNORED = ("local_rank", "use_DeeplabV3_as_seg_branch")
 _REF_INVERTED = {"no_pretrained": "pretrained"}  # --no_pretrained == --pretrained false

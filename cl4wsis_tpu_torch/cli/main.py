@@ -10,6 +10,16 @@ COCO at step 0, VOC images in the COCO label space after), read from
 processes, or ``--synthetic`` batches. With ``--synthetic`` there is no
 validation set, so the CLI validates nothing; with real data
 ``run_validation`` runs the mode of the stage on the validation set.
+
+Over several cards, one process each (``--batch_size`` per process):
+
+    CL4WSIS_MULTIHOST=1 python -m torch.distributed.run --nproc_per_node N \
+        -m cl4wsis_tpu_torch.cli.main ...
+
+Each rank trains on its card with its shard of the data (``--synthetic``
+gives every rank the same batches, as the JAX CLI does), validates its
+strided shard of the validation set and merges the metrics; rank 0 writes
+the checkpoints and the log (``core/dist``).
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import torch
 
 from cl4wsis_tpu_torch.cl import tasks
 from cl4wsis_tpu_torch.cli.config import Config, parse_config
+from cl4wsis_tpu_torch.core import dist
 from cl4wsis_tpu_torch.data.coco import make_coco_datasets
 from cl4wsis_tpu_torch.data.loader import Loader, eval_samples
 from cl4wsis_tpu_torch.data.voc import make_voc_datasets
@@ -95,6 +106,7 @@ def build_data(cfg: Config):
     else:
         raise NotImplementedError(cfg.dataset)
     loader = Loader(train, cfg.batch_size, seed=cfg.seed,
+                    process_index=dist.rank(), process_count=dist.world(),
                     num_workers=cfg.num_workers,
                     pin_memory=torch.device(cfg.device).type == "cuda")
     return loader, val
@@ -148,19 +160,21 @@ def make_instance_forward(trainer: Trainer):
 
 def run_validation(trainer: Trainer, val, logger: Logger, tag: str):
     """The three validation modes of upstream ``run.py:132-153``: DeeplabV3
-    mIoU, phase-1 CAM mIoU through the PseudoLabeler, instance mAP."""
+    mIoU, phase-1 CAM mIoU through the PseudoLabeler, instance mAP. Each
+    rank validates its strided shard; the metrics merge over ranks."""
     cfg = trainer.cfg
     if val is None:
         return
+    samples = eval_samples(val, dist.rank(), dist.world())
     if cfg.model == "DeeplabV3" and cfg.phase != 1:
-        res = validate_semseg(make_classify_seg(trainer), eval_samples(val),
+        res = validate_semseg(make_classify_seg(trainer), samples,
                               trainer.tot_classes)
         logger.add_results(res)
         logger.info(f"[{tag}] MeanIoU={res['Mean IoU']:.4f} "
                     f"MeanAcc={res['Mean Acc']:.4f}")
         return
     if cfg.phase == 1:
-        res = validate_semseg(make_classify_cam(trainer), eval_samples(val),
+        res = validate_semseg(make_classify_cam(trainer), samples,
                               trainer.tot_classes,
                               old_classes=trainer.old_classes)
         logger.add_results(res)
@@ -168,7 +182,7 @@ def run_validation(trainer: Trainer, val, logger: Logger, tag: str):
                     f"MeanAcc={res['Mean Acc']:.4f} "
                     f"MeanPrec={res['Mean Precision']:.4f}")
         return
-    res = validate_instances(make_instance_forward(trainer), eval_samples(val))
+    res = validate_instances(make_instance_forward(trainer), samples)
     logger.add_results({"map": res["map"], "map50": res["map50"],
                         "ap": res["ap"].tolist(),
                         "truncated_centers": res["truncated_centers"]})
@@ -184,11 +198,26 @@ def main(argv: Optional[list] = None,
          on_trainer: Optional[Callable[[Trainer], None]] = None) -> int:
     """Run one stage of the chain. `on_trainer`, where given, is called with
     the Trainer as soon as it is built, before any checkpoint is loaded:
-    the hook through which a caller watches the run."""
+    the hook through which a caller watches the run. Under
+    ``CL4WSIS_MULTIHOST=1`` it joins the process group torchrun describes
+    and destroys it at the end, or keeps the group its caller made: a
+    caller that runs main several times in one process over more than one
+    rank makes the group once, since a second group made under torchrun's
+    store can meet the first one's keys there."""
     cfg = parse_config(argv)
     if cfg.sample_num > 0:
         raise NotImplementedError(
             "--sample_num comes with utils/visualize (ROADMAP queue 1, item 9)")
+    made_group = dist.init_from_env(cfg.device)
+    try:
+        return _run(cfg, on_trainer)
+    finally:
+        if made_group:
+            dist.destroy()
+
+
+def _run(cfg: Config, on_trainer: Optional[Callable[[Trainer], None]]
+         ) -> int:
     # the data takes the recipe's crops (coco-voc: 448, validation 512);
     # the JAX CLI builds its data before finalize, at the flags' crops
     loader, val = build_data(cfg.finalize())
@@ -214,6 +243,7 @@ def main(argv: Optional[list] = None,
     if resume and os.path.exists(resume):
         start_epoch = trainer.load_resume(resume)
         print(f"[ckpt] resumed from {resume} at epoch {start_epoch}")
+    trainer.check_replicas()
 
     ckpt_out = trainer.default_ckpt_path()
     os.makedirs(os.path.dirname(ckpt_out), exist_ok=True)
@@ -223,7 +253,8 @@ def main(argv: Optional[list] = None,
     ov = "-ov" if cfg.overlap else ""
     logdir_full = os.path.join(cfg.logdir, f"{cfg.dataset}-{cfg.task}{ov}",
                                cfg.name)
-    logger = Logger(logdir_full, name=cfg.name, summary=cfg.visualize)
+    logger = Logger(logdir_full, rank=dist.rank(), name=cfg.name,
+                    summary=cfg.visualize)
     try:
         logger.add_config(cfg)
         # determinism canary (run.py:118-119): a fixed-seed draw printed so

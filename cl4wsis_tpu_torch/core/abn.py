@@ -4,9 +4,12 @@ Eval: ``(x - running_mean) * rsqrt(running_var + eps) * weight + bias`` in
 float32 with the output in the input's dtype, then the activation.
 
 Train: the statistics of the batch over (N, H, W), in float32, as the JAX
-module takes them: mean and E[x^2] - mean^2 (not Welford). The running
-stats move by flax momentum 0.9 (torch's 0.1), the running var unbiased by
-n / (n - 1). The weight is used as stored (no abs). Parameter and buffer
+module takes them: mean and E[x^2] - mean^2 (not Welford). In a run over
+several ranks the batch is the global one: the sums of x and x^2 and the
+count go over ranks in one all-reduce a layer, whose backward carries the
+cross-rank terms (``core/dist.all_sum``). The running stats move by flax
+momentum 0.9 (torch's 0.1), the running var unbiased by n / (n - 1), n the
+global count. The weight is used as stored (no abs). Parameter and buffer
 names follow torch BN, so a state dict carries the upstream keys. While a
 ``--remat`` block is recomputed (``core/remat.recomputing``) the running
 stats stay where the forward left them.
@@ -18,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cl4wsis_tpu_torch.core import dist
 from cl4wsis_tpu_torch.core.remat import recomputing
 
 ACTIVATIONS = ("leaky_relu", "elu", "identity", "relu")
@@ -35,6 +39,25 @@ def activate(y: torch.Tensor, activation: str, param: float,
     if activation == "relu":
         return F.relu_(y) if inplace else F.relu(y)
     return y
+
+
+def batch_stats(xf: torch.Tensor):
+    """(mean, biased var, count) per channel of float32 NCHW `xf` over
+    (N, H, W) of the global batch: one all-reduce of the sums of x and
+    x^2 and of the count."""
+    C = xf.shape[1]
+    dims = (0, 2, 3)
+    sums = dist.all_sum(torch.cat([
+        xf.sum(dims), torch.square(xf).sum(dims),
+        xf.new_full((1,), xf.numel() // C)]))
+    n = sums[-1]
+    mean = sums[:C] / n
+    return mean, sums[C:2 * C] / n - torch.square(mean), n
+
+
+def unbiased(var: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """var * n / (n - 1), n / 1 at n = 1."""
+    return var * (n / torch.clamp(n - 1, min=1))
 
 
 def update_running(module: nn.Module, mean: torch.Tensor,
@@ -79,11 +102,8 @@ class ABN(nn.Module):
 
     def _train_norm(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        dims = (0, 2, 3)
-        mean = xf.mean(dim=dims)
-        var = torch.square(xf).mean(dim=dims) - torch.square(mean)
-        n = x.numel() // x.shape[1]
-        update_running(self, mean, var * (n / max(n - 1, 1)), MOMENTUM)
+        mean, var, n = batch_stats(xf)
+        update_running(self, mean, unbiased(var, n), MOMENTUM)
         inv = torch.rsqrt(var + self.eps) * self.weight
         return (xf - mean[:, None, None]) * inv[:, None, None] + \
             self.bias[:, None, None]

@@ -3,10 +3,11 @@
 
 Re-design of reference ``metrics/stream_metrics.py:34-144``: incremental
 int64 confusion matrix via bincount; results Overall/Mean Acc, Mean
-Precision, Mean IoU, per-class dicts. `synch` is a no-op: the port runs in
-one process until multi-GPU runs are ported (ROADMAP queue 1, item 10),
-which will sum the matrices across ranks there. ``confusion_figure`` needs
-matplotlib and comes with ``utils/visualize`` (item 9).
+Precision, Mean IoU, per-class dicts. In a run over several ranks each
+evaluates its strided shard of the validation set and `synch` sums the
+matrices and sample counts over ranks (``core/dist.sum_array``: int64 on
+the CPU under gloo, on the card under NCCL). ``confusion_figure`` needs
+matplotlib and comes with ``utils/visualize`` (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
+
+from cl4wsis_tpu_torch.core import dist
 
 
 class StreamSegMetrics:
@@ -71,7 +74,13 @@ class StreamSegMetrics:
         }
 
     def synch(self):
-        """Sum confusion matrices across ranks: one process, nothing to do."""
+        """Sum the confusion matrices and sample counts over ranks (in one
+        all-reduce); every rank then holds the global ones."""
+        n = self.n_classes
+        flat = dist.sum_array(np.append(self.confusion_matrix.reshape(-1),
+                                        np.int64(self.total_samples)))
+        self.confusion_matrix = flat[:-1].reshape(n, n)
+        self.total_samples = int(flat[-1])
 
     def reset(self):
         self.confusion_matrix = np.zeros((self.n_classes, self.n_classes),

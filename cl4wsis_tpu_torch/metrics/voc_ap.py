@@ -1,7 +1,8 @@
 """VOC/FCIS-protocol instance-segmentation AP (chainercv replacement), a
-copy of ``cl4wsis_tpu/metrics/voc_ap.py`` (numpy only). `synch` is a no-op
-in one process; the cross-rank merge comes with multi-GPU runs (ROADMAP
-queue 1, item 10).
+copy of ``cl4wsis_tpu/metrics/voc_ap.py`` (numpy). In a run over several
+ranks each evaluates its strided shard of the validation set and `synch`
+merges every other rank's (n_pos, score, match) in rank order, as the JAX
+package's does (``core/dist.gather_objects``).
 
 Re-implements ``metrics/voc_evaluation.py`` plus the chainercv helpers it
 imports (mask_iou, calc_detection_voc_ap) in numpy — chainercv is not a
@@ -16,6 +17,8 @@ from collections import defaultdict
 from typing import Dict, List, Sequence
 
 import numpy as np
+
+from cl4wsis_tpu_torch.core import dist
 
 
 def mask_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -116,7 +119,15 @@ class InstanceAPAccumulator:
                 self.match[idx][lab].extend(v)
 
     def synch(self) -> None:
-        """Merge accumulators across ranks: one process, nothing to do."""
+        """Merge every other rank's accumulator into this one, in rank
+        order; every rank then holds the global results."""
+        state = (self.n_pos, self.score, self.match)
+        for r, theirs in enumerate(dist.gather_objects(state)):
+            if r == dist.rank():
+                continue
+            other = InstanceAPAccumulator(self.thresholds)
+            other.n_pos, other.score, other.match = theirs
+            self.merge(other)
 
     def results(self, use_07_metric: bool = False) -> Dict[str, np.ndarray]:
         """mAP@[.5:.05:.95] per class + map (``train.py:633-643``)."""

@@ -100,7 +100,8 @@ class CL4WSISModel(nn.Module):
         offset (2); at the network's strides (seg at the output stride,
         center and offset at res2's: 1/4 on a ResNet, 1/8 on WideResNet-38)
         unless `interpolate`. In train mode the dropout of the body (if it
-        has any) and of the decoder draws from `generator`."""
+        has any) and of the decoder draws from `generator`, at the global
+        batch's shape over several ranks, each keeping its rows."""
         features = self.body(x, generator)
         pred = {"seg": self.cls(self.head(features["res5"]))}
         if self.has_instance:

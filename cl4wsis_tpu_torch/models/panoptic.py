@@ -16,6 +16,7 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from cl4wsis_tpu_torch.core import dist
 from cl4wsis_tpu_torch.core.abn import ABN
 from cl4wsis_tpu_torch.ops.resize import resize_bilinear
 
@@ -54,7 +55,8 @@ class _ASPPPooling(nn.Module):
 class Dropout(nn.Module):
     """Dropout as flax computes it: keep with probability 1 - p, kept values
     divided by 1 - p; the mask comes from `generator` (torch's default one
-    if None). A no-op at eval."""
+    if None), drawn at the global batch's shape, of which this rank keeps
+    its rows (``core/dist``). A no-op at eval."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -64,8 +66,9 @@ class Dropout(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=generator,
-                          device=x.device) >= self.p
+        keep = dist.rows_of(torch.rand(dist.global_shape(x.shape),
+                                       generator=generator,
+                                       device=x.device)) >= self.p
         return torch.where(keep, x / (1.0 - self.p), 0.0)
 
 

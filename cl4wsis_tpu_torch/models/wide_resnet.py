@@ -4,7 +4,8 @@
 The A2 variant always runs at output stride 8: /2 max-pools before mod2
 and mod3, stride 2 at mod4.block1, dilation 2 in mod5 and 4 in mod6 and
 mod7; dropout 0.3 in mod6 and 0.5 in mod7, elementwise as the JAX module
-draws it, from the generator the caller passes.
+draws it, from the generator the caller passes, at the global batch's
+shape over several ranks (``models/panoptic.Dropout``).
 
 The low-level features are the pre-activation ``bn1`` outputs of the first
 block of mod4..mod7:

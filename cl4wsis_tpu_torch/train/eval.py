@@ -17,6 +17,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from cl4wsis_tpu_torch.core import dist
 from cl4wsis_tpu_torch.metrics.stream import StreamSegMetrics
 from cl4wsis_tpu_torch.metrics.voc_ap import InstanceAPAccumulator, ins_map_iou
 from cl4wsis_tpu_torch.ops.instance_postproc import get_ins_map
@@ -110,7 +111,9 @@ def validate_instances(forward: Callable,
                        samples: Iterable[Dict[str, np.ndarray]]) -> Dict:
     """samples yield dicts: image (1, H, W, 3), gt_masks (K, H, W) bool,
     gt_labels (K,) 0-based thing classes. Returns the AP results dict and
-    "truncated_centers", the NMS candidates the slot cap dropped."""
+    "truncated_centers", the NMS candidates the slot cap dropped. Over
+    several ranks each passes its own shard of the samples; the results
+    and the count are merged over ranks."""
     acc = InstanceAPAccumulator()
     truncated = 0
     for s in samples:
@@ -132,7 +135,7 @@ def validate_instances(forward: Callable,
         acc.add_image(s["gt_labels"], s["gt_masks"], labels, scores, iou)
     acc.synch()
     res = acc.results()
-    res["truncated_centers"] = truncated
+    res["truncated_centers"] = int(dist.sum_array(np.array([truncated]))[0])
     return res
 
 
@@ -143,7 +146,8 @@ def validate_semseg(classify: Callable,
     """classify: image (B, H, W, 3) tensor -> class probabilities (B, H, W,
     C), whose argmax is taken where they lie (on the device for a tensor
     there). When `old_classes` is given (phase-1 CAM eval), ground-truth
-    labels below it are zeroed."""
+    labels below it are zeroed. Over several ranks each passes its own
+    shard of the samples; the confusion matrices are summed over ranks."""
     metrics = StreamSegMetrics(n_classes)
     for s in samples:
         probs = classify(torch.as_tensor(np.asarray(s["image"], np.float32)))

@@ -4,6 +4,11 @@ Logits and soft targets are (B, C, H, W); integer label maps are (B, H, W)
 with 255 = ignore. Every loss computes in float32, whatever the logits'
 dtype, and returns a 0-dim tensor (the per-pixel BCE returns (B, H, W)).
 Nothing here reads a value back to the host.
+
+In a run over several ranks each loss of a batch is this rank's share of
+the loss of the global batch: its own numerator over the global count
+(``core/dist``), so the shares sum to the global loss; at world 1 it is
+the loss.
 """
 
 from __future__ import annotations
@@ -13,8 +18,16 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from cl4wsis_tpu_torch.core import dist
+
 CENTER_LOSS_WEIGHT = 200.0   # train.py:100 of the upstream code
 OFFSET_LOSS_WEIGHT = 0.01    # train.py:101 of the upstream code
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """This rank's share of the mean of `x` over the global batch, whose
+    ranks hold equal shards: its own mean over the world size."""
+    return x.mean() / dist.world()
 
 
 def _bce_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -46,32 +59,54 @@ def bce_with_logits_ignore(logits: torch.Tensor, targets: torch.Tensor,
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor
                     ) -> torch.Tensor:
-    """Mean BCE-with-logits over soft targets."""
-    return _bce_logits(logits, targets).mean()
+    """Mean BCE-with-logits over soft targets (share of the global
+    batch's)."""
+    return batch_mean(_bce_logits(logits, targets))
 
 
 def deeplab_ce(logits: torch.Tensor, labels: torch.Tensor,
                ignore_index: int = 255,
                top_k_percent: float = 0.2) -> torch.Tensor:
     """Hard-pixel-mining cross entropy: the mean of the largest
-    max(int(top_k_percent * numel), 1) pixel losses of the whole batch,
-    ignored pixels counting as 0."""
+    k = max(int(top_k_percent * numel), 1) pixel losses of the whole global
+    batch, ignored pixels counting as 0.
+
+    Each rank takes its own top min(k, numel) values; the ranks' candidates
+    meet in one all-reduce of a zero-padded (world, min(k, numel)) buffer,
+    which gives the global k-th value t. A rank's share is the sum of its
+    own values among the global top k, over k. Values equal to t are taken
+    by the lower ranks first: the loss is the one process's, and only which
+    of several equal pixel losses gets the gradient may differ from it."""
     valid = labels != ignore_index
     logp = F.log_softmax(logits.float(), dim=1)
     idx = torch.where(valid, labels, 0).long()[:, None]
     nll = -torch.gather(logp, 1, idx)[:, 0] * valid
     flat = nll.reshape(-1)
     if top_k_percent >= 1.0:
-        return flat.mean()
-    k = max(int(top_k_percent * flat.numel()), 1)
-    return torch.topk(flat, k, sorted=False).values.mean()
+        return batch_mean(flat)
+    k = max(int(top_k_percent * flat.numel() * dist.world()), 1)
+    m = min(k, flat.numel())
+    top = torch.topk(flat, m).values                    # descending
+    with torch.no_grad():
+        r = dist.rank()
+        cand = top.new_zeros((dist.world(), m))
+        cand[r] = top
+        cand = dist.all_sum(cand)
+        t = torch.topk(cand.reshape(-1), k).values[-1]
+        ties = (cand == t).sum(1)
+        need = k - (cand > t).sum()                     # ties to take
+        mine = torch.minimum(torch.clamp(
+            need - (torch.cumsum(ties, 0)[r] - ties[r]), min=0), ties[r])
+        keep = (top > t) | ((top == t) & (torch.cumsum(top == t, 0) <= mine))
+    return (top * keep).sum() / k
 
 
 def _weighted(err: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """sum(err * weight) / count(weight > 0), 0 when nothing is weighted.
-    `weight` broadcasts over the channels of `err`; the count is of the
-    weight's own entries, as upstream normalises."""
-    n = (weight > 0).sum().float()
+    """sum(err * weight) / count(weight > 0), 0 when nothing is weighted;
+    the count is the global batch's. `weight` broadcasts over the channels
+    of `err`; the count is of the weight's own entries, as upstream
+    normalises."""
+    n = dist.all_sum((weight > 0).sum().float())
     return torch.where(n > 0, (err * weight).sum() / torch.clamp(n, min=1.0),
                        0.0)
 
@@ -159,4 +194,4 @@ def icarl_loss(inputs: torch.Tensor, targets: torch.Tensor,
 def feature_distillation(features: torch.Tensor,
                          features_old: torch.Tensor) -> torch.Tensor:
     """loss_de: the MSE between the new and the old backbone features."""
-    return torch.square(features.float() - features_old.float()).mean()
+    return batch_mean(torch.square(features.float() - features_old.float()))

@@ -17,8 +17,10 @@ PeakGenerator on live backbone features, supervised by
 Its random draws are the rot90 count `angle_k` in {1, 2, 3}, drawn on the
 host (from the step's generator's seed and the step count) so that
 ``torch.rot90`` gets a Python int, and the random-drop negative labels,
-drawn on the device from the step's generator. Nothing in the step waits
-on the card.
+drawn on the device from the step's generator at the global batch's shape
+(each rank keeps its rows, ``core/dist``). Over several ranks the losses
+are this rank's shares of the global batch's and the gradients are summed
+over ranks. Nothing in the step waits on the card.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from cl4wsis_tpu_torch.core import dist
 from cl4wsis_tpu_torch.ops.pamr import pamr
 from cl4wsis_tpu_torch.ops.resize import resize_bilinear
 from cl4wsis_tpu_torch.train import losses
@@ -112,9 +115,10 @@ def make_phase1_train_step(model: torch.nn.Module,
     the state's step count, the body's dropout masks (WideResNet's mod6
     and mod7) and then the random-drop labels from `generator` (on the
     device); ``draws={"angle_k": int, "labels_neg": (B, h, w)
-    tensor}`` overrides either. The step updates `state` in place and returns the
-    metrics loss, l_seg, l_cam_int, l_cam_new, l_loc, l_cls, lde and flac
-    as tensors on the device.
+    tensor}`` overrides either (this rank's rows). The step updates
+    `state` in place and returns the metrics loss, l_seg, l_cam_int,
+    l_cam_new, l_loc, l_cls, lde and flac as tensors on the device (this
+    rank's shares).
     """
     device, fmt, autocast = prepare(
         (model, model_old, pseudolabeler, peakgenerator), device, dtype)
@@ -169,9 +173,10 @@ def make_phase1_train_step(model: torch.nn.Module,
                 a_target = torch.maximum(torch.maximum(a_ori, a_flip),
                                          rot90_back(a_rot, angle_k))
                 a_rot_target = rot90_batch(a_target, angle_k)
-            flac_loss = (torch.square(a_ori - a_target).mean() +
-                         torch.square(a_flip - a_target).mean() +
-                         torch.square(a_rot - a_rot_target).mean()) / 3.0
+            flac_loss = (losses.batch_mean(torch.square(a_ori - a_target)) +
+                         losses.batch_mean(torch.square(a_flip - a_target)) +
+                         losses.batch_mean(torch.square(a_rot - a_rot_target))
+                         ) / 3.0
             int_masks_raw = int_masks_raw[:bs]
 
         with autocast():
@@ -228,16 +233,16 @@ def make_phase1_train_step(model: torch.nn.Module,
             per_pix = losses._bce_logits(out_seg, pseudo_seg_map).sum(1)
             per_img = per_pix.flatten(1).mean(-1)
             l_seg = l_seg_weight * (batch_weight * per_img).sum() / (
-                batch_weight.sum() + 1e-5)
+                dist.all_sum(batch_weight.sum()) + 1e-5)
             l_cls = wss_losses.balanced_mask_loss_ce(int_masks_raw,
                                                      pseudo_gt_seg, l1h)
             if use_randrop:
                 ref = _with_labels(torch.sigmoid(int_masks.float()), l1h)
                 labels_neg = draws.get("labels_neg")
                 if labels_neg is None:
-                    labels_neg = torch.randint(
-                        0, old_classes, (bs,) + cam_size,
-                        generator=generator, device=device)
+                    labels_neg = dist.rows_of(torch.randint(
+                        0, old_classes, dist.global_shape((bs,) + cam_size),
+                        generator=generator, device=device))
                 l_cam_int = l_cam_int + wss_losses.randrop_loss(
                     int_masks_raw, ref, labels_neg.to(device), old_classes,
                     label=l1h if no_mask else None)

@@ -21,6 +21,10 @@ The label factory runs over the whole batch at once, so each of its kernels
 is launched once per step: connected components twice (8-connected classes,
 4-connected weak clusters), top-k twice (CAM peaks, NMS centers), run
 totals once and the stamp twice. Nothing in the step waits on the card.
+
+Over several ranks each rank runs the label factory on its own rows, as
+the JAX step's ``shard_map`` does; the weighted losses count over the
+global batch, and the gradients are summed over ranks (``core/dist``).
 """
 
 from __future__ import annotations
@@ -111,7 +115,8 @@ def make_phase2_train_step(model: torch.nn.Module,
     "l1h" (B, C) image-level labels of the thing classes. `generator` feeds
     the decoder's dropout. The step updates `state` in place and returns
     the metrics: loss, l_center, l_offset, pseudo_weight_px and
-    label_truncated, as tensors on the device.
+    label_truncated, as tensors on the device: this rank's shares, which
+    sum over ranks to the global batch's values.
     """
     device, fmt, autocast = prepare(
         (model, model_old, pseudolabeler, peakgenerator), device, dtype)

@@ -2,7 +2,15 @@
 ``cl4wsis_tpu/train/state.py``): a small dataclass. PyTorch keeps the
 parameters and BN statistics in the model and the optimizer state in the
 optimizer, so the state is those two objects, the schedule and the step
-count. Also the set-up every train step builder shares."""
+count. Also the set-up every function that makes a train step shares.
+
+Over several ranks (``core/dist``) a step's loss on a rank is its share of
+the global batch's loss, so the gradients are SUMMED over ranks before
+the update, not averaged as DDP averages them: :meth:`TrainState.
+apply_gradients` does that with one all-reduce of the trainable
+gradients. DDP is not used: the steps call the models' ``forward_seg``,
+``forward_instance`` and ``forward_features``, whose gradients DDP's
+reducer, prepared in ``forward``, would not see."""
 
 from __future__ import annotations
 
@@ -11,6 +19,7 @@ from typing import Iterable
 
 import torch
 
+from cl4wsis_tpu_torch.core import dist
 from cl4wsis_tpu_torch.train.schedule import Schedule, set_lr
 
 
@@ -23,7 +32,10 @@ class TrainState:
 
     def apply_gradients(self) -> None:
         """One optimizer update at the learning rate of the current step
-        (gradients already in .grad), then the next step."""
+        (gradients already in .grad, summed over ranks here), then the
+        next step."""
+        dist.sum_grads(p for g in self.optimizer.param_groups
+                       for p in g["params"])
         set_lr(self.optimizer, self.lr_schedule, self.step)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)

@@ -8,7 +8,9 @@ device (``ops/labelgen.batched_label_generation``, which launches the stamp
 kernel once), and takes seg BCE-with-ignore (mean) or the hard-pixel CE,
 + 200 x weighted MSE of the centers + 0.01 x weighted L1 of the offsets.
 The BN statistics of body, head and decoder move. Nothing in the step
-waits on the card.
+waits on the card. Over several ranks the step trains on the global batch
+(``core/dist``): the losses are this rank's shares and the gradients are
+summed over ranks before the update.
 """
 
 from __future__ import annotations
@@ -35,8 +37,9 @@ def make_step0_train_step(model: torch.nn.Module, seg_loss: str = "bce",
     parameters; the targets and the losses compute in float32. batch:
     "image" (B, H, W, 3) normalised, "seg" (B, H, W) int (255 ignore),
     "inst" (B, H, W) int dense instance ids. `generator` feeds the
-    dropout of the body (WideResNet's mod6 and mod7) and the decoder. The step updates `state` in place and returns the
-    metrics loss, l_seg, l_center and l_offset as tensors on the device.
+    dropout of the body (WideResNet's mod6 and mod7) and the decoder. The
+    step updates `state` in place and returns the metrics loss, l_seg,
+    l_center and l_offset as tensors on the device (this rank's shares).
     """
     if seg_loss not in ("bce", "dce"):
         raise ValueError(seg_loss)
@@ -58,7 +61,8 @@ def make_step0_train_step(model: torch.nn.Module, seg_loss: str = "bce",
                 for k, v in pred.items()}
 
         if seg_loss == "bce":
-            l_seg = losses.bce_with_logits_ignore(pred["seg"], seg).mean()
+            l_seg = losses.batch_mean(
+                losses.bce_with_logits_ignore(pred["seg"], seg))
         else:
             l_seg = losses.deeplab_ce(pred["seg"], seg)
         if net.has_instance:

@@ -15,6 +15,13 @@ copies into the tensors the model already has, so the optimizer, built
 first, keeps updating the model's own parameters. The old model is a model
 of its own, loaded from the previous step's checkpoint into its own
 tensors.
+
+Over several ranks (``CL4WSIS_MULTIHOST=1`` under ``torchrun``,
+``core/dist``) each rank trains on its card, ``cuda:$LOCAL_RANK``, with
+its shard of every global batch; the steps sum the gradients over ranks.
+The epoch and interval means are summed over ranks before they are
+returned or logged, so every rank holds the global ones. Rank 0 writes
+the checkpoints and every rank waits for it; every rank reads them.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from cl4wsis_tpu_torch.cl import tasks
 from cl4wsis_tpu_torch.cl.ckpt import (ckpt_path, expand_for_new_step,
                                        load_checkpoint, load_torch_pretrained,
                                        save_checkpoint, tree_merge)
+from cl4wsis_tpu_torch.core import dist
 from cl4wsis_tpu_torch.models import make_model
 from cl4wsis_tpu_torch.train import schedule
 from cl4wsis_tpu_torch.train.phase1 import (make_phase1_train_step,
@@ -52,10 +60,6 @@ def pretrained_name(backbone: str) -> str:
 class Trainer:
     def __init__(self, cfg, iters_per_epoch: int):
         self.cfg = cfg = cfg.finalize(iters_per_epoch)
-        if int(os.environ.get("CL4WSIS_MULTIHOST", "0")):
-            raise NotImplementedError(
-                "multi-GPU training is not ported yet (ROADMAP queue 1, "
-                "item 10)")
 
         self.classes = tasks.get_per_task_classes(cfg.dataset, cfg.task,
                                                   cfg.step)
@@ -108,7 +112,7 @@ class Trainer:
         self.device, _, _ = prepare(
             [m for m in (self.model, self.model_old, self.pseudolabeler,
                          self.peakgenerator) if m is not None],
-            cfg.device, cfg.dtype)
+            dist.local_device(cfg.device), cfg.dtype)
         self._build_optimizer()
         self._train_steps: Dict[Any, Any] = {}
         self.step_timer: Optional[StepTimer] = None
@@ -151,7 +155,7 @@ class Trainer:
 
     def _get_step(self, epoch: int):
         cfg = self.cfg
-        kw = dict(device=cfg.device, dtype=cfg.dtype)
+        kw = dict(device=self.device, dtype=cfg.dtype)
         if self.supervised_pseudo:
             if "p0" not in self._train_steps:
                 self._train_steps["p0"] = make_step0_train_step(
@@ -207,7 +211,11 @@ class Trainer:
         The sums stay on the device, so the host waits on the card only at
         the first batch (to fail fast), at each interval's end and, under
         ``--debug``, after every step. The steps draw from one generator
-        seeded with seed + epoch."""
+        seeded with seed + epoch, in the same state on every rank. Over
+        several ranks the sums of the steps' metrics (each rank's shares)
+        are summed over ranks at each interval's end and at the epoch's,
+        so the means are the global batch's on every rank; only rank 0
+        profiles."""
         cfg = self.cfg
         step_fn = self._get_step(epoch)
         gen = torch.Generator(self.device).manual_seed(cfg.seed + epoch)
@@ -216,7 +224,7 @@ class Trainer:
         n = n_int = 0
         t0 = time.time()
         timer = None
-        if cfg.profile_dir and epoch == 0:
+        if cfg.profile_dir and epoch == 0 and dist.is_main():
             timer = self.step_timer = StepTimer(
                 cfg.profile_dir, device=self.device)
         for i, batch in enumerate(self._prefetch_device(batches)):
@@ -234,7 +242,7 @@ class Trainer:
             if i == 0 or cfg.debug:
                 float(metrics["loss"])
             if logger is not None and (i + 1) % cfg.print_interval == 0:
-                means = {k: float(v) / n_int for k, v in interval.items()}
+                means = {k: v / n_int for k, v in _sum_ranks(interval).items()}
                 logger.debug(f"Epoch {epoch}, Batch {i + 1}, "
                              f"Loss={means.get('loss', float('nan')):.6f}")
                 ipe = (cfg.max_iters // cfg.epochs) if cfg.epochs else 0
@@ -251,7 +259,7 @@ class Trainer:
             raise ValueError(
                 "epoch produced no batches — dataset smaller than "
                 "batch_size after task filtering?")
-        metrics = {k: float(v) / n for k, v in agg.items()}
+        metrics = {k: v / n for k, v in _sum_ranks(agg).items()}
         metrics["epoch_time_s"] = time.time() - t0
         metrics["n_batches"] = n
         if timer is not None:
@@ -296,6 +304,14 @@ class Trainer:
         if self.pseudolabeler is None:
             return None
         return self.pseudolabeler.state_dict()
+
+    def check_replicas(self) -> None:
+        """Raise unless every rank holds the same weights: every rank seeds
+        and builds the same, and loads the same checkpoints."""
+        for name in ("model", "model_old", "pseudolabeler", "peakgenerator"):
+            m = getattr(self, name)
+            if m is not None:
+                dist.check_same(m.state_dict(), f"the {name}'s weights")
 
     def save(self, path: str, epoch: int):
         tree = {"model": self.model.state_dict(),
@@ -344,3 +360,10 @@ class Trainer:
         cfg = self.cfg
         return ckpt_path(cfg.checkpoint, cfg.dataset, cfg.task, cfg.overlap,
                          cfg.name, cfg.step if step is None else step)
+
+
+def _sum_ranks(sums: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """Per-rank metric sums (tensors on the device), summed over ranks in
+    one all-reduce, as host floats."""
+    total = dist.all_sum(torch.stack([v.double() for v in sums.values()]))
+    return dict(zip(sums, total.tolist()))

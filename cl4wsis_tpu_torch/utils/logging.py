@@ -3,7 +3,8 @@
 
 `Logger` keeps the JAX logger's surface (add_scalar with an `intermediate`
 stream, commit() batching, config and result records) backed by a JSONL
-file, with wandb, offline, only where the package is importable.
+file, with wandb, offline, only where the package is importable. Only the
+logger of rank 0 writes files, starts wandb and prints.
 ``add_image`` waits for ``utils/visualize`` (ROADMAP queue 1, item 9).
 
 `StepTimer` times steps on the host clock after a device synchronise and
@@ -22,15 +23,17 @@ import torch
 
 
 class Logger:
-    def __init__(self, logdir: str, name: Optional[str] = None,
+    def __init__(self, logdir: str, rank: int = 0, name: Optional[str] = None,
                  summary: bool = True):
+        self.rank = rank
+        self.is_main = rank == 0
         self.logdir = logdir
         self.name = name or "experiment"
         self._epoch_buf: Dict[str, Any] = {}
         self._inter_buf: Dict[str, Any] = {}
         self._jsonl = None
         self._wandb = None
-        if summary:
+        if summary and self.is_main:
             os.makedirs(logdir, exist_ok=True)
             self._jsonl = open(os.path.join(logdir, f"{self.name}.jsonl"), "a")
             try:
@@ -71,10 +74,12 @@ class Logger:
         buf.clear()
 
     def info(self, msg: str):
-        print(msg, flush=True)
+        if self.is_main:
+            print(msg, flush=True)
 
     def debug(self, msg: str):
-        print(msg, flush=True)
+        if self.is_main:
+            print(msg, flush=True)
 
     def close(self):
         if self._jsonl is not None:

@@ -4,7 +4,9 @@ class-balanced mask losses and the random-drop negative loss.
 
 All of them compute in float32 and read nothing back to the host. The
 random-drop loss takes its negative labels as an argument, so the caller
-decides where they are drawn.
+decides where they are drawn. Over several ranks each loss is this rank's
+share of the global batch's (``train/losses``): batch means and counts are
+the global batch's.
 """
 
 from __future__ import annotations
@@ -14,8 +16,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from cl4wsis_tpu_torch.core import dist
 from cl4wsis_tpu_torch.ops.resize import resize_bilinear
-from cl4wsis_tpu_torch.train.losses import _bce_logits
+from cl4wsis_tpu_torch.train.losses import _bce_logits, batch_mean
 
 
 def ngwp_focal(outputs: torch.Tensor, focal: bool = True,
@@ -41,8 +44,8 @@ def bce_loss(outputs: torch.Tensor, labels: torch.Tensor, mode: str = "ngwp",
         y = outputs.float().flatten(2).mean(-1)
     per = _bce_logits(y[:, -labels.shape[-1]:], labels)
     if reduction == "sum":
-        return per.sum(1).mean()
-    return per.mean()
+        return batch_mean(per.sum(1))
+    return batch_mean(per)
 
 
 def binarize(x: torch.Tensor) -> torch.Tensor:
@@ -90,7 +93,7 @@ def _masked_loss(nll: torch.Tensor, pseudo_gt: torch.Tensor,
                  gt_labels: torch.Tensor) -> torch.Tensor:
     pix_weight, batch_weight, _ = _balanced_weights(pseudo_gt, gt_labels)
     per_img = (pix_weight * nll).flatten(1).mean(-1)
-    return (batch_weight * per_img).mean()
+    return batch_mean(batch_weight * per_img)
 
 
 def balanced_mask_loss_ce(mask_logits: torch.Tensor, pseudo_gt: torch.Tensor,
@@ -151,7 +154,8 @@ def randrop_loss(inputs: torch.Tensor, entropy_ref: torch.Tensor,
     per = _bce_logits(inputs, onehot) * (onehot == 1.0)
     pix = per.sum(1)
     valid = onehot.sum(1) != 0
-    n_valid = valid.sum()
+    n_valid, n_weighted = dist.all_sum(torch.stack(
+        [valid.sum().float(), weight.sum()]))
     loss = torch.where(n_valid > 0,
                        (pix * valid).sum() / torch.clamp(n_valid, min=1), 0.0)
-    return torch.where(weight.sum() > 0, loss, 0.0)
+    return torch.where(n_weighted > 0, loss, 0.0)

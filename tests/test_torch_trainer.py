@@ -21,7 +21,9 @@ from cl4wsis_tpu.cli import config as jconfig
 from cl4wsis_tpu.models import make_model as jax_make_model
 from cl4wsis_tpu_torch.cl import ckpt, tasks
 from cl4wsis_tpu_torch.cli import config
+from cl4wsis_tpu_torch.cli import main as cli_main
 from cl4wsis_tpu_torch.cli.main import SyntheticLoader
+from cl4wsis_tpu_torch.core import dist
 from cl4wsis_tpu_torch.train import schedule
 from cl4wsis_tpu_torch.train import trainer as trainer_mod
 from cl4wsis_tpu_torch.models import assembly
@@ -425,9 +427,12 @@ def test_step_choice(monkeypatch):
                   "--peak_from", "cam"])
     t = _trainer(["--remat"])         # --remat reaches the body
     assert t.model.body.remat
+    # multi-GPU runs start under torchrun: the switch alone is refused
     monkeypatch.setenv("CL4WSIS_MULTIHOST", "1")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _trainer([])
+    for k in dist.TORCHRUN_VARS:
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torch.distributed.run"):
+        cli_main.main(["--synthetic", "--tiny", "--device", "cpu"])
 
 
 # ------------------------------------------- loads and a phase-2 epoch
