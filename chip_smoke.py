@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path, its step-0, phase-1 and
 phase-2 train steps, the CLI chain of the three on synthetic and on VOC
-data and the COCO-to-VOC recipe (WideResNet-38), validation and serving
-from a checkpoint, and data-parallel training over several processes on
-one NVIDIA card.
+data, the COCO-to-VOC recipe (WideResNet-38) and the multi-step protocols
+(VOC 10-5 and 15-1 through step 2), validation, its sample images and
+test-time augmentation, serving from a checkpoint, the device-time reader
+of the profiler's traces, and data-parallel training over several
+processes on one NVIDIA card.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -86,7 +88,22 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      4 for phase 1) on the card and on the CPU from the same weights,
      batch and draws; step 0 also with --norm_act abr and ain and on a
      full-depth ResNet-18;
- 14. dist: (a) the CLI under torch.distributed.run at world 1 with
+ 14. multi-step: the recipe of scripts/run_10-5.sh (step 0, then phase 1
+     -> phase 2 for steps 1 and 2, one --name) through the CLI at full
+     width: VOC 10-5 on the painted mini-VOC of phase 10 (4 loader
+     workers, validation after each run, --sample_num 2 at step 2's phase
+     2, its two PNGs held to the forward's instance maps), the step-2
+     model validated through the kernels and the plain versions, TTA of
+     its seg logits (scales 0.75, 1, 1.25, flip) on the card against the
+     CPU, its traces read by utils/device_time; VOC 15-1 on --synthetic
+     (one new class a step); in each chain step 2's phase-2 step's own
+     top-k, CC, run-totals and stamp inputs held bit-equal through the
+     plain versions, the old model equal to step 1's phase-2 checkpoint,
+     phase 2's body and seg to its phase 1's; the kernels timed at the
+     one-new-class step's inputs; the launches of every run; and in phase
+     5 the profiled step's Chrome trace through utils/device_time (union
+     busy time within 2 % under the summed kernel times);
+ 15. dist: (a) the CLI under torch.distributed.run at world 1 with
      CL4WSIS_MULTIHOST=1 and NCCL, one process whose cli.main makes and
      destroys the group in each run: step 0, phase 1, phase 2, phase 2
      resumed with --continue_ckpt, and --test of the phase-2 checkpoint
@@ -101,7 +118,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      launches counted; the CLI chain at 2 ranks with --tiny, and --test
      of the same lifted checkpoint, whose merged validation must equal
      world 1's;
- 15. print the kernels line (JSON) and, last, the ok line (JSON).
+ 16. print the kernels line (JSON) and, last, the ok line (JSON).
 Without a CUDA device it exits non-zero before printing any result. The
 dist phase runs this file again as its worker processes, with arguments.
 """
@@ -109,6 +126,7 @@ dist phase runs this file again as its worker processes, with arguments.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import functools
 import gc
@@ -135,6 +153,8 @@ from cl4wsis_tpu_torch.serve import Predictor
 from cl4wsis_tpu_torch.train import phase1, phase2, schedule, step0
 from cl4wsis_tpu_torch.train.eval import validate_instances, validate_semseg
 from cl4wsis_tpu_torch.train.state import TrainState
+from cl4wsis_tpu_torch.utils import device_time
+from cl4wsis_tpu_torch.utils.visualize import sample_image
 from cl4wsis_tpu_torch.wss import PeakGenerator, PseudoLabeler
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
@@ -1182,13 +1202,17 @@ def train(dev):
             model.forward_seg(torch.flip(x, dims=[3]), interpolate=False)
     log(f"frozen forwards alone (old model, seg on image and flip), batch "
         f"{B}: {time_ms(frozen, iters=3, warmup=1):.3f} ms (CUDA events)")
-    profile_step(step, state, batches[0], gen, median)
+    profile_step(step, state, batches[0], gen, median, check_trace=True)
     return launches
 
 
-def profile_step(step, state, batch, gen, median_ms, what="step"):
+def profile_step(step, state, batch, gen, median_ms, what="step",
+                 check_trace=False):
     """One step under torch.profiler: the device's busy time (returned, ms)
-    and its idle share of `median_ms`, the top kernels and operators."""
+    and its idle share of `median_ms`, the top kernels and operators. With
+    `check_trace` the step's Chrome trace, read by utils/device_time, must
+    give a busy time (the union of the device events) within
+    DEVICE_TIME_RTOL under the summed kernel times, and never above."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1197,6 +1221,20 @@ def profile_step(step, state, batch, gen, median_ms, what="step"):
         torch.cuda.synchronize()
     rows = kernel_rows(prof)
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    if check_trace:
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "step.json")
+            prof.export_chrome_trace(path)
+            rep = device_time.device_time_report(path)
+        union_ms = rep["device_busy_s"] * 1e3
+        log(f"profiled {what}, its Chrome trace through utils/device_time: "
+            f"busy {union_ms:.3f} ms (union of the device events) against "
+            f"{busy_ms:.3f} ms summed kernel times, ratio "
+            f"{union_ms / busy_ms:.6f}; planes {rep['planes']}")
+        if not (1 - DEVICE_TIME_RTOL) * busy_ms <= union_ms <= \
+                busy_ms * (1 + 1e-6):
+            raise AssertionError(f"device_time busy {union_ms} ms against "
+                                 f"the profile's {busy_ms} ms")
     top = sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)
     log(f"profiled {what}: device busy {busy_ms:.3f} ms in "
         f"{sum(e.count for e in rows)} kernels and copies, idle share "
@@ -1272,33 +1310,65 @@ def moved_groups(before, after, group_fn):
     return moved
 
 
+_WRAPPED = {"topk": (topk, "topk_hier", topk.topk_plain),
+            "cc_multilabel": (cc, "connected_components_multilabel",
+                              cc.cc_multilabel_plain),
+            "run_totals": (segsort, "run_totals", segsort.run_totals_plain),
+            "stamp": (labelgen, "stamp_centers_batched",
+                      labelgen.stamp_centers)}
+
+
+def bits_equal(a, b):
+    """Equal bit for bit (a float32 -0.0 is not +0.0)."""
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
 @contextlib.contextmanager
-def first_stamp_checked(what):
-    """While open, the first call of labelgen.stamp_centers_batched (a
-    step's own slots) is held against the plain version at once, so that
-    neither output stays on the card; on leaving, raise if it disagreed or
-    never came."""
-    seen = []
-    real = labelgen.stamp_centers_batched
+def first_step_checked(what, per_step, kept=None):
+    """While open, the first `per_step` calls of each kernel's wrapper (one
+    step's own inputs) are held bit for bit against the plain version on
+    the same inputs at once, so that no output stays on the card, and
+    `kept`, where given, gets each kernel's first arguments; on leaving,
+    raise if one disagreed or a call never came."""
+    kept = {} if kept is None else kept
+    seen = {name: [] for name in _WRAPPED if per_step[name]}
+    saved = {name: getattr(mod, attr)
+             for name, (mod, attr, _) in _WRAPPED.items()}
 
-    def keeping(*a):
-        out = real(*a)
-        if not seen:
-            seen.append((int(a[0].sum()), tuple(a[0].shape), tuple(out.shape),
-                         max_abs_err(out, labelgen.stamp_centers(*a))))
-        return out
+    def checking(name, real, plain):
+        def run(*a, **kw):
+            out = real(*a, **kw)
+            if name in seen and len(seen[name]) < per_step[name]:
+                want = plain(*a, **kw)
+                outs = out if isinstance(out, tuple) else (out,)
+                wants = want if isinstance(want, tuple) else (want,)
+                e = max(0.0 if bits_equal(g, w) else max(max_abs_err(g, w),
+                                                         1e-30)
+                        for g, w in zip(outs, wants))
+                n_valid = (f", {int(a[0].sum())} valid"
+                           if a[0].dtype == torch.bool else "")
+                seen[name].append((f"{tuple(a[0].shape)}{n_valid} -> "
+                                   f"{tuple(outs[0].shape)}", e))
+                kept.setdefault(name, (a, kw))
+            return out
+        return run
 
-    labelgen.stamp_centers_batched = keeping
+    for name, (mod, attr, plain) in _WRAPPED.items():
+        setattr(mod, attr, checking(name, saved[name], plain))
     try:
         yield
     finally:
-        labelgen.stamp_centers_batched = real
-    n_valid, slots, shape, e = seen[0]
-    log(f"{what} step's own stamp, {slots} slots, {n_valid} valid -> "
-        f"{shape}: kernel against plain max_abs_err {e}")
-    if e != 0.0:
-        raise AssertionError(f"the {what} stamp disagrees with its plain "
-                             f"version on the step's own slots")
+        for name, (mod, attr, _) in _WRAPPED.items():
+            setattr(mod, attr, saved[name])
+    for name, calls in seen.items():
+        log(f"{what} step's own {name} inputs, kernel against plain: " +
+            ", ".join(f"{call}: max_abs_err {e}" for call, e in calls))
+        if any(e != 0.0 for _, e in calls) or len(calls) < per_step[name]:
+            raise AssertionError(f"{what}: {name} disagrees with its plain "
+                                 f"version on the step's own inputs, or was "
+                                 f"not called: {calls}")
 
 
 def train_step0(dev):
@@ -1317,7 +1387,7 @@ def train_step0(dev):
     before = {k: v.clone() for k, v in model.state_dict().items()}
     log(f"step-0 set-up {time.perf_counter() - t0:.1f} s")
 
-    with first_stamp_checked("step-0"):
+    with first_step_checked("step-0", PER_STEP0):
         metrics, median, launches, _ = run_steps("step-0", step, state,
                                                  batches, gen, PER_STEP0)
     if not all(m["l_center"] > 0 and m["l_offset"] > 0 for m in metrics):
@@ -1673,19 +1743,22 @@ def paint_objects(arr, i, cats, rs):
     return anns
 
 
-def write_painted_set(img_dirs, sizes, classes_of, n_categories):
-    """N_TRAIN + N_VAL JPEGs of gray noise at `sizes` (W x H, in turn) into
-    img_dirs["train"] / ["val"] (the first N_TRAIN train), each painted
-    with the classes `classes_of(i)` by paint_objects. Returns the COCO
-    bodies of the two splits and the annotations with their image sizes."""
+def write_painted_set(img_dirs, sizes, classes_of, n_categories,
+                      n_train=None):
+    """`n_train` (N_TRAIN) + N_VAL JPEGs of gray noise at `sizes` (W x H, in
+    turn) into img_dirs["train"] / ["val"] (the first `n_train` train),
+    each painted with the classes `classes_of(i)` by paint_objects.
+    Returns the COCO bodies of the two splits and the annotations with
+    their image sizes."""
+    n_train = N_TRAIN if n_train is None else n_train
     from PIL import Image
     rs = np.random.RandomState(0)
     body = {split: {"images": [], "annotations": [], "categories": [
         {"id": c, "name": str(c)} for c in range(1, n_categories + 1)]}
         for split in ("train", "val")}
     ann_id = 1
-    for i in range(N_TRAIN + N_VAL):
-        split = "train" if i < N_TRAIN else "val"
+    for i in range(n_train + N_VAL):
+        split = "train" if i < n_train else "val"
         W, H = sizes[i % len(sizes)]
         name = f"img_{i:03d}.jpg"
         arr = (rs.rand(H, W, 3) * 40 + 100).astype(np.uint8)
@@ -1703,18 +1776,19 @@ def write_painted_set(img_dirs, sizes, classes_of, n_categories):
                   for a in b["annotations"]]
 
 
-def write_mini_voc(root):
+def write_mini_voc(root, classes_of=lambda i: (16 + i % 5, i % 15 + 1),
+                   n_train=None):
     """A painted mini-VOC, modelled on tests/test_data.py's fixture with
     rich=True and paint=True, at VOC-native sizes: JPEGs of gray noise
-    cycling 500x375, 375x500, 500x333 and 333x500 (W x H), each with one
-    new class (16-20) and one old class (1-15) painted as class-coloured
-    boxes scaled to the canvas, and their polygons in
-    voc/pascal_sbd_{train,val}.json (the first N_TRAIN images train, the
-    next N_VAL validate). Returns the annotations with their image sizes."""
+    cycling 500x375, 375x500, 500x333 and 333x500 (W x H), each with the
+    classes `classes_of(i)` (by default one new class of 15-5, 16-20, and
+    one old class, 1-15) painted as class-coloured boxes scaled to the
+    canvas, and their polygons in voc/pascal_sbd_{train,val}.json (the
+    first `n_train` (N_TRAIN) images train, the next N_VAL validate).
+    Returns the annotations with their image sizes."""
     img_dir = os.path.join(root, "voc", "JPEGImages")
     body, anns = write_painted_set({"train": img_dir, "val": img_dir},
-                                   VOC_SIZES,
-                                   lambda i: (16 + i % 5, i % 15 + 1), 20)
+                                   VOC_SIZES, classes_of, 20, n_train)
     for split, b in body.items():
         with open(os.path.join(root, "voc", f"pascal_sbd_{split}.json"),
                   "w") as f:
@@ -2208,7 +2282,7 @@ def wrn_step0(dev):
                                  schedule.make_schedule("poly", 5e-5, 10000))
         gen = torch.Generator(device="cuda").manual_seed(3)
         what = f"WideResNet-38 step-0 (remat {remat})"
-        with first_stamp_checked(what):
+        with first_step_checked(what, PER_STEP0):
             metrics, median, _, peak = run_steps(
                 what, step, state, batches, gen, PER_STEP0, warmup=1,
                 timed=2, size=S_WRN)
@@ -2372,6 +2446,373 @@ def card_vs_cpu():
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+# ---------------------------------------------------- multi-step protocols
+
+# scripts/run_10-5.sh's runs under one --name: step 0, then phase 1 ->
+# phase 2 for steps 1 and 2, each phase 2 reading its phase 1's checkpoint
+# and writing over it (phase 1 with --pseudo_ep 0, so that its one epoch
+# runs the use_pseudo program, as CHAIN_RUNS does)
+MS_STEP0 = ["--step", "0", "--bce", "--optim", "adam", "--lr", "5e-5",
+            "--weight_decay", "0"]
+MS_PHASE1 = ["--weakly", "--phase", "1", "--alpha", "0.5", "--lr", "1e-3",
+             "--loss_de", "1", "--lr_policy", "warmup", "--affinity",
+             "--optim", "sgd", "--pseudo_ep", "0"]
+MS_PHASE2 = ["--weakly", "--phase", "2", "--alpha", "0.5", "--lr", "5e-5",
+             "--loss_de", "1", "--lr_policy", "warmup", "--affinity",
+             "--optim", "adam", "--weight_decay", "0"]
+
+
+def ms_classes_of(i):
+    """The 10-5 mini-VOC's classes of image `i`."""
+    return (1 + i % 10, 11 + i % 10)
+
+
+# the 10-5 mini-VOC: each image paints a base class (1-10) and one of
+# 11-20, so that at batch 16 step 0 trains on 7 batches and steps 1 and 2
+# on 3 each (57 and 55 images; the step-2 runs' step 2 is traced); 15-5's
+# mini-VOC leaves step 1 15 images, no batch
+MS_N_TRAIN = 112
+SAMPLE_NUM = 2
+TTA_SCALES = (0.75, 1.0, 1.25)
+# the fused TTA logits, card (float32, TF32 off) against the CPU: the
+# relative L2 error (float32 convolutions summed in other orders)
+TTA_RTOL = 1e-4
+DEVICE_TIME_RTOL = 0.02
+
+
+def multistep_runs(task_dir):
+    """(run, kind, argv) of the recipe's five runs."""
+    runs = [("step 0", "step 0", MS_STEP0)]
+    for s in (1, 2):
+        runs += [(f"step {s} phase 1", "phase 1", ["--step", str(s)] +
+                  MS_PHASE1),
+                 (f"step {s} phase 2", "phase 2", ["--step", str(s)] +
+                  MS_PHASE2 + ["--seg_ckpt",
+                               os.path.join(task_dir, f"ms_{s}")])]
+    return runs
+
+
+def multistep_chain(root, task, common, what, real):
+    """The recipe's five runs of VOC `task` with `common` (with `real`, a
+    data root: loader workers, validation after each run and --sample_num
+    at step 2's phase 2, whose validation runs with the center heads'
+    biases raised by 0.3): each run's launches held to its steps, its
+    validation and its sample forwards; its checkpoint, finite losses;
+    step 2's phase-2 step's own kernel inputs bit-equal through the plain
+    versions; at step 2 the old model equal to step 1's phase-2
+    checkpoint, phase 2's body and seg to its phase 1's, bit for bit.
+    Returns the launches of each run, the step-2 phase-2 trainer, the
+    kept kernel inputs and the validation set (or None)."""
+    ck = os.path.join(root, "ck")
+    task_dir = os.path.join(ck, "step", f"voc-{task}-ov")
+    logdir = os.path.join(root, "logs")
+    launches, kept, sampled = {}, {}, []
+    rec, watch = ChainRecorder(), LoaderWatch()
+    real_forward = cli.make_instance_forward
+
+    def sampling_forward(trainer):
+        # the validation after training, with the center heads' biases
+        # raised by 0.3 (as in phase 9), so that the random weights give
+        # instances to draw; the checkpoint is already written
+        with torch.no_grad():
+            for conv in trainer.model.instance_head.classifier.center.cls:
+                conv.bias += 0.3
+        fwd = real_forward(trainer)
+
+        def run(image, size):
+            out = fwd(image, size)
+            if len(sampled) < SAMPLE_NUM:
+                sampled.append(out["ins_map"].cpu().numpy())
+            return out
+        return run
+
+    if real:
+        cli.build_data = watch
+    p1_frozen = None
+    try:
+        for run, kind, argv in multistep_runs(task_dir):
+            last = run == "step 2 phase 2"
+            n_samples = SAMPLE_NUM if last and real else 0
+            argv = common + ["--task", task, "--name", "ms"] + argv + [
+                "--checkpoint", ck, "--logdir", logdir, "--visualize",
+                "false", "--profile_dir",
+                os.path.join(root, "trace", run.replace(" ", "_"))]
+            if n_samples:
+                argv += ["--sample_num", str(n_samples)]
+                cli.make_instance_forward = sampling_forward
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t = time.perf_counter()
+            with (first_step_checked(f"{what} {run}", PER_STEP, kept) if last
+                  else contextlib.nullcontext()):
+                if cli.main(argv, on_trainer=rec) != 0:
+                    raise AssertionError(f"{what} {run}: main() failed")
+            cli.make_instance_forward = real_forward
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches[run] = dict(kernels.LAUNCHES)
+            tr = rec.made[-1]
+            m = tr.epochs[0]
+            n = m["n_batches"]
+            n_val = len(watch.val) if real else 0
+            want = {k: v * n + PER_REQUEST[k] * n_samples +
+                    (VOC_PER_VAL[kind][k] * n_val if real else 0)
+                    for k, v in CHAIN_PER_STEP[kind].items()}
+            if launches[run] != want:
+                raise AssertionError(f"{what} {run}: launches "
+                                     f"{launches[run]}, expected {want}")
+            if not all(np.isfinite(v) for v in m.values()):
+                raise AssertionError(f"{what} {run}: {m}")
+            path = tr.default_ckpt_path()
+            if not os.path.exists(path):
+                raise AssertionError(f"{what} {run}: no checkpoint {path}")
+            steps = [round(v * 1e3, 3) for v in tr.step_timer.times]
+            median = float(np.median(steps[1:] or steps))
+            log(f"{what} {run}: classes {list(tr.classes)}, main() "
+                f"{wall:.3f} s, epoch {n} batches, loss {m['loss']:.6f}, "
+                f"step median {median:.3f} ms (steps after the first; "
+                f"step times ms {steps}, steps 2-4 under torch.profiler), "
+                + (f"{n_val} images validated, " if real else "") +
+                f"launches {launches[run]}")
+            if run == "step 2 phase 1":
+                p1_frozen = {k: v for k, v in load_checkpoint(path)[
+                    "model"].items() if schedule.default_group_fn(k) in
+                    ("body", "seg")}
+            if not last:
+                rec.made.clear()
+                gc.collect()
+                torch.cuda.empty_cache()
+            if real:
+                no_workers_left(f"{what} {run}")
+    finally:
+        cli.build_data, cli.make_instance_forward = watch.real, real_forward
+    t2 = rec.made[-1]
+    rec.made.clear()
+
+    # the checkpoint identities at step 2
+    m1 = load_checkpoint(os.path.join(task_dir, "ms_1"))["model"]
+    old = t2.model_old.state_dict()
+    sd = t2.model.state_dict()
+    bad = [k for k in old if not torch.equal(old[k].cpu(), m1[k])]
+    bad += [k for k, v in p1_frozen.items() if not torch.equal(sd[k].cpu(), v)]
+    groups = len(t2.model.classes), len(t2.model_old.classes)
+    if bad or set(old) != set(m1) or len(p1_frozen) < 100 or groups != (3, 2):
+        raise AssertionError(f"{what}: {len(bad)} tensors differ from their "
+                             f"checkpoint ({bad[:4]}), groups {groups}")
+    log(f"{what} checks: 5 checkpoints, the step-2 model of {groups[0]} "
+        f"classifier groups, its old model's {len(old)} tensors ({groups[1]} "
+        f"groups) equal step 1's phase-2 checkpoint, phase 2's "
+        f"{len(p1_frozen)} body and seg tensors equal its phase 1's, bit "
+        f"for bit")
+    if real:
+        images = os.path.join(logdir, f"voc-{task}-ov", "ms", "images")
+        if sorted(os.listdir(images)) != [f"test_sample_{i}.png"
+                                          for i in range(SAMPLE_NUM)]:
+            raise AssertionError(f"{what}: sample images {os.listdir(images)}")
+        from PIL import Image
+        for i, ins in enumerate(sampled):
+            png = np.asarray(Image.open(os.path.join(
+                images, f"test_sample_{i}.png")))
+            h, w = ins.shape
+            same = np.array_equal(png, sample_image(watch.val[i]["image"][0],
+                                                    ins))
+            coloured = np.array_equal(png[:, w:].max(-1) > 0, ins >= 0)
+            log(f"{what} --sample_num image {i}: {png.shape} {png.dtype}, "
+                f"{int((ins >= 0).sum())} instance pixels in "
+                f"{len(np.unique(ins[ins >= 0]))} instances; equal to "
+                f"sample_image of the forward: {same}; coloured pixels "
+                f"those of ins_map >= 0: {coloured}")
+            if png.shape != (h, 2 * w, 3) or not same or not coloured:
+                raise AssertionError(f"{what}: sample image {i} is wrong")
+    return launches, t2, kept, watch.val if real else None
+
+
+def step2_kernel_rows(kept, C, rs):
+    """The kernel rows at the one-new-class step's own inputs: top-k over
+    the CAM rows (with torch.topk beside it), CC and run totals as the
+    step gave them; the stamp at its pseudo stamp's shape on step_slots'
+    pseudo slots (1-3 valid an image: under random weights the step's own
+    may hold none), and on the step's own slots ("step_own")."""
+    (cam, k), _ = kept["topk"]
+    rows = cam.reshape(-1, cam.shape[-1]).contiguous()
+    (cls_map,), ckw = kept["cc_multilabel"]
+    conn = ckw.get("connectivity", 8)
+    rt_args, _ = kept["run_totals"]
+    own, _ = kept["stamp"]
+    Cs, sigma, hw = own[4], own[5], own[6]
+    Bs, K = own[0].shape
+    st_args = [torch.from_numpy(a).to(own[0].device) for a in step_slots(
+        "pseudo", rs, Bs, K, hw[0], hw[1], Cs)] + [Cs, sigma, hw]
+    e = max_abs_err(labelgen.stamp_centers_cuda(*st_args),
+                    labelgen.stamp_centers(*st_args))
+    if e != 0.0:
+        raise AssertionError(f"stamp at ({Bs}, {K}) -> {Cs} channels: {e}")
+
+    def stamp_row(args, what):
+        valid = args[0]
+        return dict(
+            shape=f"({Bs}, {K}) slots, {int(valid.sum())} valid ({what}) -> "
+                  f"({Bs}, {Cs}, {hw[0]}, {hw[1]}) float32, sigma {sigma}",
+            bound_ms=bound_ms(Bs * Cs * hw[0] * hw[1] * 4 + K * Bs * 13),
+            **timings(lambda: labelgen.stamp_centers_cuda(*args),
+                      lambda: labelgen.stamp_centers(*args)))
+    cls_map = cls_map.to(torch.int32).contiguous()
+    out = {
+        "topk": dict(
+            shape=f"{tuple(rows.shape)} float32, k {k}, the 15-1 step-2 "
+                  f"CAM rows (one new class)",
+            bound_ms=bound_ms(rows.numel() * 4 + rows.shape[0] * k * 8),
+            **timings(lambda: topk.topk_cuda(rows, k),
+                      lambda: topk.topk_plain(rows, k),
+                      lambda: torch.topk(rows, k))),
+        "cc_multilabel": dict(
+            shape=f"{tuple(cls_map.shape)} int32, connectivity {conn}, the "
+                  f"15-1 step-2 class map",
+            bound_ms=bound_ms(2 * cls_map.numel() * 4),
+            **timings(lambda: cc.cc_multilabel_cuda(cls_map, conn),
+                      lambda: cc.cc_multilabel_plain(cls_map, conn),
+                      plain_iters=2)),
+        "run_totals": dict(
+            shape=f"{tuple(rt_args[0].shape)} int32 x 4 in, x 4 out, the "
+                  f"15-1 step-2 refinement keys",
+            bound_ms=bound_ms(8 * rt_args[0].numel() * 4),
+            **timings(lambda: segsort.run_totals_cuda(*rt_args),
+                      lambda: segsort.run_totals_plain(*rt_args))),
+        "stamp": dict(stamp_row(st_args, "step_slots' pseudo slots at the "
+                                          "15-1 step-2 pseudo stamp's shape"),
+                      max_abs_err=e,
+                      step_own=stamp_row(own, "the 15-1 step-2 pseudo stamp's "
+                                              "own slots")),
+    }
+    if Cs != C:
+        raise AssertionError(f"the step-2 stamp has {Cs} channels, not {C}")
+    for r in [*out.values(), out["stamp"]["step_own"]]:
+        log(f"at {r['shape']}: {r['ms']} ms events, {r['device_ms']} ms "
+            f"device, plain {r['plain_ms']} ms, library {r['library_ms']} ms "
+            f"({r['library_device_ms']} ms device), bound "
+            f"{r['bound_ms']:.6f} ms")
+    return out
+
+
+def tta_check(model, dev):
+    """test_augmentation of the model's semantic logits on an S^2 request
+    at TTA_SCALES with flip, in float32 on the card `dev` (TF32 off)
+    against the port on the CPU, and its time on the card in float32 and
+    bf16."""
+    from cl4wsis_tpu_torch.models import tta
+    rs = np.random.RandomState(5)
+    img = request_image(S, S, rs).astype(np.float32) / 255.0
+    img = (img - phase1.IMAGENET_MEAN) / phase1.IMAGENET_STD
+    x = torch.from_numpy(img.astype(np.float32)).permute(2, 0, 1)[None]
+    model.eval()
+
+    def apply(m, bf16=False):
+        @torch.no_grad()
+        def run(batch):
+            where = next(m.parameters()).device
+            with torch.autocast(where.type, dtype=torch.bfloat16,
+                                enabled=bf16):
+                return m.forward_seg(batch, interpolate=False)[0]["seg"]
+        return run
+
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        xd = x.to(dev)
+        card, pred = tta.test_augmentation(apply(model), xd, TTA_SCALES)
+        t32 = time_ms(lambda: tta.test_augmentation(apply(model), xd,
+                                                    TTA_SCALES),
+                      iters=3, warmup=1)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    t16 = time_ms(lambda: tta.test_augmentation(apply(model, bf16=True), xd,
+                                                TTA_SCALES),
+                  iters=3, warmup=1)
+    cpu_model = copy.deepcopy(model).cpu().float().eval()
+    t = time.perf_counter()
+    ref, ref_pred = tta.test_augmentation(apply(cpu_model), x, TTA_SCALES)
+    cpu_s = time.perf_counter() - t
+    card, pred = card.cpu(), pred.cpu()
+    rel = float((card - ref).norm() / ref.norm())
+    agree = float((pred == ref_pred).float().mean())
+    log(f"TTA, the step-2 model's seg logits ({tuple(card.shape)}) on a "
+        f"{S}x{S} request, scales {TTA_SCALES} with flip, mean fusion: card "
+        f"(float32, TF32 off) against CPU relative L2 error {rel:.3e} "
+        f"(tolerance {TTA_RTOL:.0e}), max abs "
+        f"{float((card - ref).abs().max()):.3e}, argmax agreement {agree:.6f}; card {t32:.3f} ms float32, "
+        f"{t16:.3f} ms bf16 autocast (CUDA events), CPU {cpu_s:.3f} s")
+    if not rel <= TTA_RTOL or card.shape != (1, model.tot_classes, S, S):
+        raise AssertionError(f"TTA: card and CPU differ ({rel})")
+    del cpu_model
+
+
+def chain_device_time(trace_dir, what):
+    """utils/device_time on a chain run's --profile_dir traces: busy time,
+    the per-step device times and the top 10 kernels; each traced step's
+    device time within the trace's busy time and above 0."""
+    rep = device_time.device_time_report(trace_dir)
+    steps = device_time.module_step_times(trace_dir)
+    ops = device_time.op_breakdown(trace_dir, top=10)
+    per_step = steps.get("train_step", [])
+    log(f"{what} trace through utils/device_time: busy "
+        f"{rep['device_busy_s'] * 1e3:.3f} ms over a span of "
+        f"{rep['span_s'] * 1e3:.3f} ms, planes {sorted(rep['planes'])}, "
+        f"device ms of each traced step "
+        f"{[round(v * 1e3, 3) for v in per_step]}, main_module_times {len(device_time.main_module_times(trace_dir))}"
+        f" steps")
+    for name, total, count in ops:
+        log(f"  {total * 1e3:9.3f} ms  x{count:<5d} {name[:90]}")
+    if not per_step or min(per_step) <= 0 or \
+            sum(per_step) > rep["device_busy_s"] * (1 + 1e-6):
+        raise AssertionError(f"{what}: device_time steps {per_step} against "
+                             f"busy {rep['device_busy_s']}")
+
+
+def multistep(rs):
+    """Phase 14: the multi-step protocols at full width: VOC 10-5 through
+    step 2 on the painted mini-VOC (loader workers, validation after each
+    run, --sample_num 2 at step 2's phase 2), its step-2 model validated
+    through the kernels and the plain versions, TTA on it, the traces read
+    by utils/device_time; VOC 15-1 through step 2 on --synthetic (one new
+    class a step), its step-2 phase-2 step's own kernel inputs timed.
+    Returns the launches of each chain's runs and the kernel rows at the
+    one-new-class shapes."""
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        write_mini_voc(os.path.join(root, "data"), ms_classes_of, MS_N_TRAIN)
+        common = [a for a in CHAIN_COMMON if a != "--synthetic"] + [
+            "--data_root", os.path.join(root, "data"), "--crop_size_val",
+            str(S), "--num_workers", str(LOADER_WORKERS), "--pretrained",
+            "false"]
+        t = time.perf_counter()
+        out["10-5"], t2, _, val = multistep_chain(root, "10-5", common,
+                                                  "10-5 chain", real=True)
+        log(f"10-5 chain: {time.perf_counter() - t:.1f} s")
+        validate_voc(t2, [val[i] for i in range(len(val))],
+                     "10-5 step 2, center bias +0.3")
+        tta_check(t2.model, t2.device)
+        chain_device_time(os.path.join(root, "trace", "step_2_phase_2"),
+                          "10-5 step 2 phase 2")
+        del t2
+        gc.collect()
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        t = time.perf_counter()
+        out["15-1"], t2, kept, _ = multistep_chain(root, "15-1", CHAIN_COMMON,
+                                                   "15-1 chain", real=False)
+        log(f"15-1 chain: {time.perf_counter() - t:.1f} s")
+        chain_device_time(os.path.join(root, "trace", "step_2_phase_2"),
+                          "15-1 step 2 phase 2")
+        rows = step2_kernel_rows(kept, t2.tot_classes - 1, rs)
+        del t2, kept
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, rows
 
 
 # ------------------------------------------------------------- dist phase
@@ -2752,7 +3193,7 @@ def compare_steps(what, one, ranks, tol, floor=None):
 
 
 def dist_phase(chain_seen, rs):
-    """Phase 14: data-parallel runs. (a) The CLI chain under torchrun at
+    """Phase 15: data-parallel runs. (a) The CLI chain under torchrun at
     world 1 and NCCL (step 0, phase 1, phase 2, a resumed phase 2) and
     --test of the lifted phase-2 checkpoint on 8 painted images; held
     against the chain phase. (b) DIST_RANKS gloo ranks sharing the card at batch 8
@@ -2970,6 +3411,9 @@ def main() -> int:
     log(f"WideResNet-38 step-0 remat phase: {time.perf_counter() - t:.1f} s")
     card_vs_cpu()
     t = time.perf_counter()
+    ms_launches, ms_rows = multistep(rs)
+    log(f"multi-step phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     dist_launches = dist_phase(chain_seen, rs)
     log(f"dist phase: {time.perf_counter() - t:.1f} s")
     log(f"all phases passed in {time.perf_counter() - t_phases:.1f} s after "
@@ -2990,10 +3434,13 @@ def main() -> int:
             if PER_STEP0[name]:
                 path += ", step-0 train step"
             path += (", CLI chain (synthetic, VOC and COCO-to-VOC), "
-                     "validation, serving from a checkpoint")
+                     "validation, serving from a checkpoint, VOC 10-5 and "
+                     "15-1 through step 2")
             # every chain launches each kernel in phase 2 and the stamp at
             # step 0; step 0's validation and serving launch the others
-            if any(ln["phase 2"][name] < 1 or (
+            ms_phase2 = [ln[f"step {s} phase 2"][name] for s in (1, 2)
+                         for ln in ms_launches.values()]
+            if min(ms_phase2) < 1 or any(ln["phase 2"][name] < 1 or (
                     PER_STEP0[name] and ln["step 0"][name] < 1)
                    for ln in (chain_launches, voc_launches, cv_launches)) or (
                     PER_REQUEST[name] and min(
@@ -3020,6 +3467,10 @@ def main() -> int:
                      "launches_from_checkpoint_coco_voc":
                          cv_serve_launches[name],
                      "launches_dist": dist_launches[name],
+                     "launches_chain_10_5": {run: ln[name] for run, ln in
+                                             ms_launches["10-5"].items()},
+                     "launches_chain_15_1": {run: ln[name] for run, ln in
+                                             ms_launches["15-1"].items()},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": "bytes",
@@ -3028,7 +3479,8 @@ def main() -> int:
                      "shape": r["shape"], "serving": r.get("serving"),
                      "cases": r.get("cases"), "step0": r.get("step0"),
                      "connectivity_4": r.get("connectivity_4"),
-                     "coco_voc": r.get("coco_voc")})
+                     "coco_voc": r.get("coco_voc"),
+                     "one_new_class": ms_rows.get(name)})
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

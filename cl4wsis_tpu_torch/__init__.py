@@ -3,7 +3,8 @@
 The layout mirrors the JAX package so each counterpart is easy to find:
   core/    ABN (eval and train mode), the norm factory, --remat and the
            data-parallel runs over several processes (dist.py)
-  models/  ResNet backbone, DeepLab-v3 head, Panoptic-DeepLab decoder/head
+  models/  ResNet and WideResNet backbones, DeepLab-v3 head,
+           Panoptic-DeepLab decoder/head, test-time augmentation
   wss/     PseudoLabeler, PeakGenerator and the weak-supervision losses
   ops/     instance post-processing, the phase-2 label factory, the step-0
            targets and PAMR, with hand-written CUDA kernels (csrc/*.cu) for
@@ -20,13 +21,16 @@ The layout mirrors the JAX package so each counterpart is easy to find:
   cl/      the CL task registry, checkpoints, classifier expansion, the
            iABN ingest and the weight carry-over from the JAX package
   cli/     the configuration and ``python -m cl4wsis_tpu_torch.cli.main``
-  utils/   the logger and the step timer
+  utils/   the logger (scalars, images, figures), the step timer, the
+           colour maps and sample images, and a reader of the profiler's
+           Chrome traces (device busy time, per-step device time, kernels)
   serve.py the Predictor (from a checkpoint, with flip, COCO export)
 
 The ported paths are serving, the three train steps (step 0, phase 1,
-phase 2) and the CLI chain over them on VOC, COCO, COCO-to-VOC or
-synthetic data, on one card or data-parallel over several, with
-checkpoints and validation; visualisation is not ported yet.
+phase 2) and the CLI chain over them, through every incremental step of
+the multi-step protocols (VOC 15-1, 10-5, ...), on VOC, COCO,
+COCO-to-VOC or synthetic data, on one card or data-parallel over several,
+with checkpoints, validation and its sample images.
 The package never imports JAX or the JAX package.
 """
 

@@ -43,6 +43,7 @@ from cl4wsis_tpu_torch.train.eval import (make_eval_forward, validate_instances,
 from cl4wsis_tpu_torch.train.state import DTYPES
 from cl4wsis_tpu_torch.train.trainer import Trainer
 from cl4wsis_tpu_torch.utils.logging import Logger
+from cl4wsis_tpu_torch.utils.visualize import sample_image
 
 
 class SyntheticLoader:
@@ -161,7 +162,9 @@ def make_instance_forward(trainer: Trainer):
 def run_validation(trainer: Trainer, val, logger: Logger, tag: str):
     """The three validation modes of upstream ``run.py:132-153``: DeeplabV3
     mIoU, phase-1 CAM mIoU through the PseudoLabeler, instance mAP. Each
-    rank validates its strided shard; the metrics merge over ranks."""
+    rank validates its strided shard; the metrics merge over ranks. In the
+    instance mode the first ``--sample_num`` validation images are logged
+    beside their instances (``Logger.add_image``, rank 0)."""
     cfg = trainer.cfg
     if val is None:
         return
@@ -182,7 +185,17 @@ def run_validation(trainer: Trainer, val, logger: Logger, tag: str):
                     f"MeanAcc={res['Mean Acc']:.4f} "
                     f"MeanPrec={res['Mean Precision']:.4f}")
         return
-    res = validate_instances(make_instance_forward(trainer), samples)
+    fwd = make_instance_forward(trainer)
+    for i in range(min(cfg.sample_num, len(val))):
+        # upstream's --sample_num images: the image beside its instances,
+        # found at the image's own size (the JAX CLI asks for them at the
+        # ground truth's, which the validation resize changes, and then
+        # cannot put the two side by side)
+        image = np.asarray(val[i]["image"], np.float32)
+        out = fwd(torch.as_tensor(image), image.shape[1:3])
+        logger.add_image(f"{tag}/sample", sample_image(
+            image[0], out["ins_map"].cpu().numpy()), i)
+    res = validate_instances(fwd, samples)
     logger.add_results({"map": res["map"], "map50": res["map50"],
                         "ap": res["ap"].tolist(),
                         "truncated_centers": res["truncated_centers"]})
@@ -205,9 +218,6 @@ def main(argv: Optional[list] = None,
     rank makes the group once, since a second group made under torchrun's
     store can meet the first one's keys there."""
     cfg = parse_config(argv)
-    if cfg.sample_num > 0:
-        raise NotImplementedError(
-            "--sample_num comes with utils/visualize (ROADMAP queue 1, item 9)")
     made_group = dist.init_from_env(cfg.device)
     try:
         return _run(cfg, on_trainer)

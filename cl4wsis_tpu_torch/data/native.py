@@ -23,7 +23,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -37,12 +37,15 @@ _lib: Optional[ctypes.CDLL] = None
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _F64P = ctypes.POINTER(ctypes.c_double)
+_I32P = ctypes.POINTER(ctypes.c_int32)
 _I = ctypes.c_int
 _SIGNATURES = {
     "rle_from_string": ([ctypes.c_char_p, _I, _I64P, _I], _I),
     "rle_decode": ([_I64P, _I, _I, _I, _U8P], None),
     "rle_encode": ([_U8P, _I, _I, _I64P, _I], _I),
     "poly_to_mask": ([_F64P, _I, _I, _I, _U8P], None),
+    "connected_components_stats": ([_U8P, _I, _I, _I, _I32P, _F64P, _I], _I),
+    "mask_iou": ([_U8P, _I, _U8P, _I, ctypes.c_int64, _F64P], None),
 }
 
 
@@ -120,4 +123,39 @@ def poly_to_mask(polys: Sequence[Sequence[float]], h: int, w: int
             continue
         xy = np.ascontiguousarray(p, np.float64)
         lib().poly_to_mask(xy.ctypes.data_as(_F64P), len(xy) // 2, h, w, op)
+    return out
+
+
+def connected_components_stats(mask: np.ndarray, connectivity: int = 8,
+                               max_comp: int = 4096
+                               ) -> Tuple[np.ndarray, np.ndarray]:
+    """Components of a (h, w) mask by union-find: (labels (h, w) int32, 0
+    for background and 1..K in first-pixel order, stats (K, 3) float64
+    [area, mean y, mean x]). Raises past `max_comp` components."""
+    h, w = mask.shape
+    m = np.ascontiguousarray(mask, np.uint8)
+    labels = np.zeros((h, w), np.int32)
+    stats = np.zeros((max_comp, 3), np.float64)
+    k = lib().connected_components_stats(
+        m.ctypes.data_as(_U8P), h, w, connectivity,
+        labels.ctypes.data_as(_I32P), stats.ctypes.data_as(_F64P), max_comp)
+    if k < 0:
+        raise RuntimeError(f"more than {max_comp} components")
+    st = stats[:k]
+    area = np.maximum(st[:, 0], 1)
+    return labels, np.stack([st[:, 0], st[:, 1] / area, st[:, 2] / area],
+                            axis=1)
+
+
+def mask_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """IoU matrix (n, m) float64 of masks a (n, h, w) and b (m, h, w); 0
+    where both masks are empty."""
+    n, m = a.shape[0], b.shape[0]
+    a8 = np.ascontiguousarray(a.reshape(n, -1), np.uint8)
+    b8 = np.ascontiguousarray(b.reshape(m, -1), np.uint8)
+    if a8.shape[1] != b8.shape[1]:
+        raise ValueError(f"mask sizes differ: {a.shape} and {b.shape}")
+    out = np.zeros((n, m), np.float64)
+    lib().mask_iou(a8.ctypes.data_as(_U8P), n, b8.ctypes.data_as(_U8P), m,
+                   a8.shape[1], out.ctypes.data_as(_F64P))
     return out

@@ -6,8 +6,8 @@ int64 confusion matrix via bincount; results Overall/Mean Acc, Mean
 Precision, Mean IoU, per-class dicts. In a run over several ranks each
 evaluates its strided shard of the validation set and `synch` sums the
 matrices and sample counts over ranks (``core/dist.sum_array``: int64 on
-the CPU under gloo, on the card under NCCL). ``confusion_figure`` needs
-matplotlib and comes with ``utils/visualize`` (ROADMAP queue 1, item 9).
+the CPU under gloo, on the card under NCCL). ``confusion_figure``
+imports matplotlib when it is called.
 """
 
 from __future__ import annotations
@@ -86,6 +86,21 @@ class StreamSegMetrics:
         self.confusion_matrix = np.zeros((self.n_classes, self.n_classes),
                                          np.int64)
         self.total_samples = 0
+
+    def confusion_figure(self):
+        """Matplotlib figure of the row-normalised confusion matrix
+        (upstream ``metrics/stream_metrics.py:133-144``)."""
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        fig, ax = plt.subplots()
+        cm = self.confusion_matrix.astype(np.float64)
+        cm = cm / np.maximum(cm.sum(axis=1, keepdims=True), 1)
+        im = ax.imshow(cm, cmap=plt.get_cmap("Blues"))
+        fig.colorbar(im)
+        ax.set_xlabel("prediction")
+        ax.set_ylabel("ground truth")
+        return fig
 
     def to_str(self, results: Dict) -> str:
         lines = ["Results:"]

@@ -3,9 +3,9 @@
 
 `Logger` keeps the JAX logger's surface (add_scalar with an `intermediate`
 stream, commit() batching, config and result records) backed by a JSONL
-file, with wandb, offline, only where the package is importable. Only the
-logger of rank 0 writes files, starts wandb and prints.
-``add_image`` waits for ``utils/visualize`` (ROADMAP queue 1, item 9).
+file, with wandb, offline, only where the package is importable; images
+and figures are PNG files under the log directory. Only the logger of rank
+0 writes files, starts wandb and prints.
 
 `StepTimer` times steps on the host clock after a device synchronise and
 traces a range of steps with ``torch.profiler`` into a Chrome trace.
@@ -60,9 +60,32 @@ class Logger:
         self._write({"type": "results", **_jsonable(results)})
 
     def add_image(self, tag: str, image, step: Optional[int] = None):
-        raise NotImplementedError(
-            "Logger.add_image comes with utils/visualize (ROADMAP queue 1, "
-            "item 9)")
+        """Save a (H, W, 3) uint8 image, or a float one in [0, 1], as
+        ``images/{tag}_{step}.png`` under the log directory (``/`` in the
+        tag becomes ``_``), and to wandb where it runs. Rank 0 only."""
+        if not self.is_main:
+            return
+        from PIL import Image
+        arr = np.asarray(image)
+        if arr.dtype != np.uint8:
+            arr = (np.clip(arr, 0, 1) * 255).astype(np.uint8)
+        Image.fromarray(arr).save(self._png_path("images", tag, step))
+        if self._wandb is not None:  # pragma: no cover - not installed here
+            import wandb
+            self._wandb.log({tag: wandb.Image(arr)})
+
+    def add_figure(self, tag: str, figure, step: Optional[int] = None):
+        """Save a matplotlib figure as ``figures/{tag}_{step}.png`` under
+        the log directory. Rank 0 only."""
+        if self.is_main:
+            figure.savefig(self._png_path("figures", tag, step),
+                           bbox_inches="tight")
+
+    def _png_path(self, kind: str, tag: str, step: Optional[int]) -> str:
+        d = os.path.join(self.logdir, kind)
+        os.makedirs(d, exist_ok=True)
+        name = f"{tag.replace('/', '_')}_{step if step is not None else 0}"
+        return os.path.join(d, name + ".png")
 
     def commit(self, intermediate: bool = False):
         buf = self._inter_buf if intermediate else self._epoch_buf
@@ -109,7 +132,9 @@ class StepTimer:
     """Host-clock step times, each ending in a device synchronise, and a
     ``torch.profiler`` trace of steps 2-4 (`TRACE_STEPS`) written to
     `trace_dir` as a Chrome trace (the trace stops at the range's end or at
-    :meth:`close`, whichever comes first)."""
+    :meth:`close`, whichever comes first). Each traced step is the host
+    range ``train_step#<step>``, by which ``utils/device_time`` finds the
+    device time of each step."""
 
     TRACE_STEPS = range(2, 5)
 
@@ -119,6 +144,7 @@ class StepTimer:
         self.device = torch.device(device)
         self.times = []
         self._prof = None
+        self._range = None
         self._first = self._last = None
         self._t0 = None
 
@@ -131,12 +157,18 @@ class StepTimer:
             self._prof = profile(activities=acts)
             self._prof.__enter__()
             self._first = step
+        if self._prof is not None:
+            self._range = torch.profiler.record_function(f"train_step#{step}")
+            self._range.__enter__()
         self._t0 = time.perf_counter()
 
     def end_step(self, step: int):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.times.append(time.perf_counter() - self._t0)
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
         self._last = step
         if self._prof is not None and step >= self.TRACE_STEPS.stop - 1:
             self._stop_trace(step)

@@ -2,7 +2,7 @@
 tiny size: the three-stage chain of upstream scripts/run.sh (step 0 ->
 step 1 phase 1 -> step 1 phase 2) on --synthetic data with the checkpoint
 identities it must keep, --continue_ckpt, the three validation modes with
-a validation set given, and --test."""
+a validation set given, --test, and --sample_num's images."""
 
 import copy
 import json
@@ -12,11 +12,16 @@ import shutil
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from cl4wsis_tpu_torch.cl.ckpt import load_checkpoint
 from cl4wsis_tpu_torch.cli import main as cli
 from cl4wsis_tpu_torch.data.synthetic import make_sample
 from cl4wsis_tpu_torch.train import schedule
+from cl4wsis_tpu_torch.utils.visualize import sample_image
+from tests.test_data import _write_fake_voc
+from tests.test_torch_cli_data import STEP0 as VOC_STEP0
+from tests.test_torch_cli_data import _run as voc_run
 
 COMMON = ["--synthetic", "true", "--tiny", "true", "--dataset", "voc",
           "--task", "15-5", "--batch_size", "8", "--crop_size", "64",
@@ -191,5 +196,56 @@ def test_validation_modes_and_test(tmp_path, root, monkeypatch):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path, root):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _run(STEP0 + ["--sample_num", "2"], root, tmp_path)
+    """Everything the JAX CLI runs is ported; what the CLI still refuses is
+    what upstream cannot run either: a peak source other than the
+    PeakGenerator (upstream train.py:88)."""
+    with pytest.raises(NotImplementedError, match="peakgenerator"):
+        _run(PHASE1 + ["--peak_from", "cam"], root, tmp_path)
+
+
+def test_sample_num_writes_the_sample_images(tmp_path):
+    """--sample_num 2 on the mini-VOC of tests/test_torch_cli_data.py,
+    validated at 40^2 (the masks stay 48^2): step 0's validation writes
+    two PNGs under images/, each the denormalised validation image beside
+    its instances, equal to sample_image of the eval forward's own output
+    at the image's size; the coloured pixels are those of ins_map >= 0."""
+    _write_fake_voc(str(tmp_path), n_images=16, size=48)
+    seen, vals = [], []
+    make_forward, build_data = cli.make_instance_forward, cli.build_data
+
+    def recording_forward(trainer):
+        fwd = make_forward(trainer)
+
+        def run(image, size):
+            out = fwd(image, size)
+            seen.append(out["ins_map"].numpy())
+            return out
+        return run
+
+    def recording_data(cfg):
+        loader, val = build_data(cfg)
+        vals.append(val)
+        return loader, val
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(cli, "make_instance_forward", recording_forward)
+    mp.setattr(cli, "build_data", recording_data)
+    try:
+        assert voc_run(str(tmp_path), VOC_STEP0 + [
+            "--name", "s", "--sample_num", "2", "--crop_size_val", "40"]) == 0
+    finally:
+        mp.undo()
+        shutil.rmtree(tmp_path / "ck", ignore_errors=True)
+    images = tmp_path / "logs" / "voc-15-5-ov" / "s" / "images"
+    assert sorted(os.listdir(images)) == ["test_sample_0.png",
+                                          "test_sample_1.png"]
+    assert len(seen) == 2 + len(vals[0])    # the samples, then validation
+    for i in range(2):
+        png = np.asarray(Image.open(images / f"test_sample_{i}.png"))
+        sample = vals[0][i]
+        want = sample_image(sample["image"][0], seen[i])
+        np.testing.assert_array_equal(png, want)
+        h, w = seen[i].shape
+        assert png.shape == (h, 2 * w, 3) and sample["image"].shape[1:3] == (
+            h, w) != sample["gt_masks"].shape[1:]
+        np.testing.assert_array_equal(png[:, w:].max(-1) > 0, seen[i] >= 0)
