@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path, its step-0, phase-1 and
 phase-2 train steps, the CLI chain of the three on synthetic and on VOC
-data, the COCO-to-VOC recipe (WideResNet-38) and the multi-step protocols
-(VOC 10-5 and 15-1 through step 2), validation, its sample images and
-test-time augmentation, serving from a checkpoint, the device-time reader
-of the profiler's traces, and data-parallel training over several
-processes on one NVIDIA card.
+data, the COCO-to-VOC recipe (WideResNet-38), the multi-step protocols
+(VOC 10-5 and 15-1 through step 2), training to accuracy on the painted
+fixture, validation, its sample images and test-time augmentation,
+serving from a checkpoint, the device-time reader of the profiler's
+traces, and data-parallel training over several processes on one NVIDIA
+card.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -103,7 +104,24 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      one-new-class step's inputs; the launches of every run; and in phase
      5 the profiled step's Chrome trace through utils/device_time (union
      busy time within 2 % under the summed kernel times);
- 15. dist: (a) the CLI under torch.distributed.run at world 1 with
+ 15. fixture accuracy, in a process of its own that starts after phase 2
+     and runs beside phases 3-16 (its steps are bound by the host): the
+     painted-fixture protocol of docs/verification.md through
+     scripts/run_rebuild_fixture_torch.py's stages and the CLI (48
+     painted images at 64^2, batch 4, float32, ResNet-101 at OS16 from
+     torch's init, seed 42, 4 loader workers): step 0 for 250 epochs
+     (Adam 3e-4, validation at e99, e199, e249), phase 1 and phase 2 for
+     20 epochs each from its checkpoints; every run rc 0, finite losses,
+     its launches held to its steps and validations, step 0's loss down
+     tenfold and its final mAP@.5 above 0; every phase-2 step's kernel
+     inputs (the trained models') through the four kernels bit-equal to
+     the plain versions, the valid slots its factory stamped counted; a
+     traced step a run through utils/device_time. In this process, after
+     phase 14, examples/train_synthetic_torch.py for 300 steps. The
+     `fixture` JSON line: loss trajectories, each validation's metrics,
+     step medians, traced device ms, wall seconds, the TF32 state, the
+     example's mAP;
+ 16. dist: (a) the CLI under torch.distributed.run at world 1 with
      CL4WSIS_MULTIHOST=1 and NCCL, one process whose cli.main makes and
      destroys the group in each run: step 0, phase 1, phase 2, phase 2
      resumed with --continue_ckpt, and --test of the phase-2 checkpoint
@@ -118,9 +136,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      launches counted; the CLI chain at 2 ranks with --tiny, and --test
      of the same lifted checkpoint, whose merged validation must equal
      world 1's;
- 16. print the kernels line (JSON) and, last, the ok line (JSON).
+ 17. print the kernels line (JSON) and, last, the ok line (JSON).
 Without a CUDA device it exits non-zero before printing any result. The
-dist phase runs this file again as its worker processes, with arguments.
+dist and fixture phases run this file again as their worker processes,
+with arguments.
 """
 
 from __future__ import annotations
@@ -132,6 +151,7 @@ import functools
 import gc
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1326,13 +1346,15 @@ def bits_equal(a, b):
 
 
 @contextlib.contextmanager
-def first_step_checked(what, per_step, kept=None):
+def first_step_checked(what, per_step, kept=None, valid=None):
     """While open, the first `per_step` calls of each kernel's wrapper (one
     step's own inputs) are held bit for bit against the plain version on
     the same inputs at once, so that no output stays on the card, and
-    `kept`, where given, gets each kernel's first arguments; on leaving,
+    `kept`, where given, gets each kernel's first arguments and `valid`
+    the count of valid slots of each checked stamp call; on leaving,
     raise if one disagreed or a call never came."""
     kept = {} if kept is None else kept
+    valid = [] if valid is None else valid
     seen = {name: [] for name in _WRAPPED if per_step[name]}
     saved = {name: getattr(mod, attr)
              for name, (mod, attr, _) in _WRAPPED.items()}
@@ -1347,8 +1369,10 @@ def first_step_checked(what, per_step, kept=None):
                 e = max(0.0 if bits_equal(g, w) else max(max_abs_err(g, w),
                                                          1e-30)
                         for g, w in zip(outs, wants))
-                n_valid = (f", {int(a[0].sum())} valid"
-                           if a[0].dtype == torch.bool else "")
+                n_valid = ""
+                if a[0].dtype == torch.bool:
+                    valid.append(int(a[0].sum()))
+                    n_valid = f", {valid[-1]} valid"
                 seen[name].append((f"{tuple(a[0].shape)}{n_valid} -> "
                                    f"{tuple(outs[0].shape)}", e))
                 kept.setdefault(name, (a, kw))
@@ -1364,7 +1388,8 @@ def first_step_checked(what, per_step, kept=None):
             setattr(mod, attr, saved[name])
     for name, calls in seen.items():
         log(f"{what} step's own {name} inputs, kernel against plain: " +
-            ", ".join(f"{call}: max_abs_err {e}" for call, e in calls))
+            ", ".join(f"{call}: max_abs_err {e}" for call, e in calls[:4]) +
+            (f" and {len(calls) - 4} calls more" if len(calls) > 4 else ""))
         if any(e != 0.0 for _, e in calls) or len(calls) < per_step[name]:
             raise AssertionError(f"{what}: {name} disagrees with its plain "
                                  f"version on the step's own inputs, or was "
@@ -2754,7 +2779,8 @@ def tta_check(model, dev):
 def chain_device_time(trace_dir, what):
     """utils/device_time on a chain run's --profile_dir traces: busy time,
     the per-step device times and the top 10 kernels; each traced step's
-    device time within the trace's busy time and above 0."""
+    device time within the trace's busy time and above 0. Returns the
+    traced steps' device ms."""
     rep = device_time.device_time_report(trace_dir)
     steps = device_time.module_step_times(trace_dir)
     ops = device_time.op_breakdown(trace_dir, top=10)
@@ -2771,6 +2797,7 @@ def chain_device_time(trace_dir, what):
             sum(per_step) > rep["device_busy_s"] * (1 + 1e-6):
         raise AssertionError(f"{what}: device_time steps {per_step} against "
                              f"busy {rep['device_busy_s']}")
+    return [round(v * 1e3, 3) for v in per_step]
 
 
 def multistep(rs):
@@ -2813,6 +2840,204 @@ def multistep(rs):
         gc.collect()
         torch.cuda.empty_cache()
     return out, rows
+
+
+# ------------------------------------------------------- fixture accuracy
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+# the painted-fixture protocol of docs/verification.md (seed 42): step 0
+# in full, 250 epochs of 12 batches; phase 1 and phase 2 cut to 20 epochs
+FIXTURE_ARGS = ["--paint", "--wrap", "--images", "48", "--size", "64",
+                "--batch", "4", "--epochs", "250", "--cl_epochs", "20",
+                "--lr0", "3e-4", "--seed", "42"]
+FIXTURE_RUNS = {"step0": "step 0", "phase1": "phase 1", "phase2": "phase 2"}
+FIXTURE_TIMEOUT_S = 1100                   # from the process's start
+EXAMPLE_STEPS = 300
+
+
+def load_script(rel, name):
+    """A script of the checkout (scripts/, examples/) as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO,
+                                                                     rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def fixture_accuracy(args=None):
+    """The painted-fixture protocol through the stages of
+    scripts/run_rebuild_fixture_torch.py and the CLI on the card, at the
+    runner's flags `args` or FIXTURE_ARGS (48 painted images at 64^2,
+    batch 4, float32, ResNet-101 at OS16 from torch's init, 4 loader
+    workers): step 0 for 250 epochs (Adam 3e-4, validation at e99, e199
+    and e249), then phase 1 and phase 2 for 20 epochs each from its
+    checkpoints. Every run rc 0 with finite losses and its launches held
+    to its steps and validations; step 0's last epoch loss under a tenth
+    of its first, its final mAP@.5 above 0; every phase-2 step's kernel
+    inputs (the trained models' own) bit-equal through the plain
+    versions, with the valid slots its factory stamped; one traced step a
+    run read by utils/device_time. Returns the launches of each run and
+    the `fixture` line's object."""
+    t_phase = time.perf_counter()
+    runner = load_script("scripts/run_rebuild_fixture_torch.py",
+                         "fixture_runner")
+    a = runner.get_parser().parse_args(args or FIXTURE_ARGS)
+    tf32 = {"cudnn": torch.backends.cudnn.allow_tf32,
+            "matmul": torch.backends.cuda.matmul.allow_tf32}
+    # every phase-2 step through the plain versions: 12 batches an epoch
+    n_p2 = (a.cl_epochs or a.epochs) * (a.images // a.batch)
+    p2_checked = {k: v * n_p2 for k, v in PER_STEP.items()}
+    launches, runs, valid = {}, {}, []
+    rec, watch = ChainRecorder(), LoaderWatch()
+    cli.build_data = watch
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            for stage, run in FIXTURE_RUNS.items():
+                a.stage = stage
+                trace = os.path.join(root, "trace", stage)
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                checked = first_step_checked(
+                    f"fixture phase 2, {n_p2} steps; each", p2_checked,
+                    valid=valid)
+                with (checked if stage == "phase2"
+                      else contextlib.nullcontext()):
+                    (r,) = runner.run_seed(a, root, on_trainer=rec, extra={
+                        stage: ["--profile_dir", trace]})
+                torch.cuda.synchronize()
+                launches[run] = dict(kernels.LAUNCHES)
+                tr = rec.made.pop()
+                n_steps = sum(m["n_batches"] for m in tr.epochs)
+                n_val = len(watch.val)
+                want = {k: v * n_steps + VOC_PER_VAL[run][k] * n_val *
+                        len(r["vals"]) for k, v in CHAIN_PER_STEP[run].items()}
+                losses = [m["loss"] for m in tr.epochs]
+                if r["rc"] != 0 or launches[run] != want or \
+                        len(r["loss"]) != tr.cfg.epochs or \
+                        not np.all(np.isfinite(losses)):
+                    raise AssertionError(f"fixture {run}: rc {r['rc']}, "
+                                         f"launches {launches[run]} (expected "
+                                         f"{want}), losses {losses[-5:]}")
+                r["traced_step_device_ms"] = chain_device_time(
+                    trace, f"fixture {run}")
+                r["val_epochs"] = [e for e in range(99, len(losses) - 1, 100)
+                                   ] + [len(losses) - 1]
+                r["n_train"], r["n_val"] = len(watch.train), n_val
+                runs[stage] = r
+                log(f"fixture {run}: {len(losses)} epochs of "
+                    f"{tr.epochs[0]['n_batches']} batches in {r['wall_s']} s"
+                    f", loss e0 {losses[0]:.4f} -> e{len(losses) - 1} "
+                    f"{losses[-1]:.4f}, validations {r['vals']}, step median "
+                    f"{r['step_ms']:.3f} ms (an epoch's host seconds a batch)"
+                    f", launches {launches[run]}")
+                del tr
+                gc.collect()
+                torch.cuda.empty_cache()
+                no_workers_left(f"fixture {run}")
+    finally:
+        cli.build_data = watch.real
+    s0 = runs["step0"]
+    if not s0["loss"][-1] < s0["loss"][0] / 10 or \
+            not s0["final"]["map50"] > 0:
+        raise AssertionError(f"fixture step 0 did not learn: loss "
+                             f"{s0['loss'][0]} -> {s0['loss'][-1]}, final "
+                             f"{s0['final']}")
+    stamped = {"calls": len(valid), "calls_with_valid": sum(v > 0 for v in
+                                                            valid),
+               "valid_slots": sum(valid), "first_step": valid[:2]}
+    log(f"fixture: the trained phase-2 factory's stamps over {n_p2} steps "
+        f"(kernels bit-equal to the plain versions on every step): "
+        f"{stamped}")
+    line = {"seed": a.seed, "tf32": tf32, "runs": {
+        stage: {k: r[k] for k in ("loss", "val_epochs", "vals", "final",
+                                  "step_ms", "traced_step_device_ms",
+                                  "wall_s", "n_train", "n_val")}
+        for stage, r in runs.items()},
+        "phase1_miou": runs["phase1"]["final"]["Mean IoU"],
+        "phase2_stamped": stamped,
+        "wall_s": round(time.perf_counter() - t_phase, 1)}
+    return launches, line
+
+
+def fixture_worker(out_path, *args):
+    """The fixture process's entry point: fixture_accuracy on the card
+    (at the runner's flags `args`, where given), its launches and line
+    saved to `out_path` (JSON). Alone, with phase 1 and phase 2 at the
+    runner's 100 epochs:
+
+        python3 chip_smoke.py fixture out.json --paint --wrap --images 48 \
+            --epochs 250 --cl_epochs 100 --lr0 3e-4 --seed 43
+    """
+    kernels.lib()
+    launches, line = fixture_accuracy(list(args))
+    with open(out_path, "w") as f:
+        json.dump({"launches": launches, "line": line}, f)
+
+
+@contextlib.contextmanager
+def fixture_process(root):
+    """Phase 15 runs in a process of its own beside the other phases, from
+    its start to `result()`: its 3000 step-0 steps are bound by the host
+    (a traced step keeps the card busy ~20 ms of ~150-220), so it
+    overlaps the others rather than adding ~14 minutes after them. The
+    process, in a session of its own with its loader workers, is killed
+    on leaving. Yields `result()`, which waits for it, prints its log
+    without the per-epoch lines and returns fixture_accuracy's result."""
+    out_path = os.path.join(root, "fixture.json")
+    log_path = os.path.join(root, "fixture.log")
+    with open(log_path, "w") as out:
+        p = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                              "fixture", out_path], stdout=out,
+                             stderr=subprocess.STDOUT, start_new_session=True)
+    t = time.perf_counter()
+
+    def result():
+        rc = p.wait(timeout=max(1.0, FIXTURE_TIMEOUT_S -
+                                (time.perf_counter() - t)))
+        with open(log_path) as f:
+            lines = [ln for ln in f if not ln.startswith(("[epoch", "Epoch"))]
+        log("--- the fixture process's log (per-epoch lines left out) ---")
+        log("".join(lines).rstrip())
+        log(f"--- fixture process: rc {rc}, {time.perf_counter() - t:.1f} s "
+            f"---")
+        if rc != 0:
+            raise AssertionError(f"the fixture process failed ({rc})")
+        with open(out_path) as f:
+            got = json.load(f)
+        return got["launches"], got["line"]
+    try:
+        yield result
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+
+
+def synthetic_example():
+    """examples/train_synthetic_torch.py for its EXAMPLE_STEPS steps on the
+    card: the stamp once a step, validation through the other kernels;
+    returns the launches and the example's result."""
+    example = load_script("examples/train_synthetic_torch.py",
+                          "train_synthetic_torch")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.perf_counter()
+    res = example.main(EXAMPLE_STEPS, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(kernels.LAUNCHES)
+    n_req = launches["topk"]
+    if launches != {k: PER_STEP0[k] * EXAMPLE_STEPS + PER_REQUEST[k] * n_req
+                    for k in PER_STEP0} or n_req < 1 or \
+            not np.isfinite(res["map50"]):
+        raise AssertionError(f"the synthetic example: launches {launches}, "
+                             f"{res}")
+    log(f"examples/train_synthetic_torch.py, {EXAMPLE_STEPS} steps: mAP@.5 "
+        f"{res['map50']:.4f}, mAP {res['map']:.4f}, {wall:.1f} s, "
+        f"launches {launches}")
+    return launches, {"steps": EXAMPLE_STEPS, "map50": res["map50"],
+                      "map": res["map"], "wall_s": round(wall, 1)}
 
 
 # ------------------------------------------------------------- dist phase
@@ -3120,7 +3345,8 @@ def dist_rank(spec_path, out_prefix):
         torch.distributed.destroy_process_group()
 
 
-DIST_WORKERS = {"dist-world1": dist_world1, "dist-rank": dist_rank}
+WORKERS = {"dist-world1": dist_world1, "dist-rank": dist_rank,
+           "fixture": fixture_worker}
 
 
 def first_update_readings(one, other):
@@ -3384,6 +3610,14 @@ def main() -> int:
     t_phases = time.perf_counter()
     res = check_kernels(dev, rs)
     check_launches = dict(kernels.LAUNCHES)
+    with tempfile.TemporaryDirectory() as fixture_root, \
+            fixture_process(fixture_root) as fixture_result:
+        return phases(dev, rs, res, check_launches, fixture_result,
+                      t_phases)
+
+
+def phases(dev, rs, res, check_launches, fixture_result, t_phases) -> int:
+    """Phases 3-17, the fixture process running beside them."""
     serve_launches = serve(dev, rs)
     painted(dev, rs)
     painted_factory(dev, rs)
@@ -3413,9 +3647,15 @@ def main() -> int:
     t = time.perf_counter()
     ms_launches, ms_rows = multistep(rs)
     log(f"multi-step phase: {time.perf_counter() - t:.1f} s")
+    example_launches, example = synthetic_example()
     t = time.perf_counter()
     dist_launches = dist_phase(chain_seen, rs)
     log(f"dist phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    fixture_launches, fixture_line = fixture_result()
+    fixture_launches["example"] = example_launches
+    log(f"fixture-accuracy phase: waited {time.perf_counter() - t:.1f} s for "
+        f"its process, which ran {fixture_line['wall_s']} s")
     log(f"all phases passed in {time.perf_counter() - t_phases:.1f} s after "
         f"the kernel build")
 
@@ -3435,14 +3675,15 @@ def main() -> int:
                 path += ", step-0 train step"
             path += (", CLI chain (synthetic, VOC and COCO-to-VOC), "
                      "validation, serving from a checkpoint, VOC 10-5 and "
-                     "15-1 through step 2")
+                     "15-1 through step 2, the painted-fixture protocol")
             # every chain launches each kernel in phase 2 and the stamp at
             # step 0; step 0's validation and serving launch the others
             ms_phase2 = [ln[f"step {s} phase 2"][name] for s in (1, 2)
                          for ln in ms_launches.values()]
             if min(ms_phase2) < 1 or any(ln["phase 2"][name] < 1 or (
                     PER_STEP0[name] and ln["step 0"][name] < 1)
-                   for ln in (chain_launches, voc_launches, cv_launches)) or (
+                   for ln in (chain_launches, voc_launches, cv_launches,
+                              fixture_launches)) or (
                     PER_REQUEST[name] and min(
                         validate_launches[name], ckpt_serve_launches[name],
                         voc_launches["step 0"][name],
@@ -3471,6 +3712,8 @@ def main() -> int:
                                              ms_launches["10-5"].items()},
                      "launches_chain_15_1": {run: ln[name] for run, ln in
                                              ms_launches["15-1"].items()},
+                     "launches_fixture": {run: ln[name] for run, ln in
+                                          fixture_launches.items()},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": "bytes",
@@ -3481,6 +3724,7 @@ def main() -> int:
                      "connectivity_4": r.get("connectivity_4"),
                      "coco_voc": r.get("coco_voc"),
                      "one_new_class": ms_rows.get(name)})
+    log(json.dumps({"fixture": fixture_line | {"example": example}}))
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3489,7 +3733,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) > 1:       # a process the dist phase starts
-        DIST_WORKERS[sys.argv[1]](*sys.argv[2:])
+    if len(sys.argv) > 1:       # a process the dist or fixture phase starts
+        WORKERS[sys.argv[1]](*sys.argv[2:])
         sys.exit(0)
     sys.exit(main())
