@@ -97,13 +97,18 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      model validated through the kernels and the plain versions, TTA of
      its seg logits (scales 0.75, 1, 1.25, flip) on the card against the
      CPU, its traces read by utils/device_time; VOC 15-1 on --synthetic
-     (one new class a step); in each chain step 2's phase-2 step's own
-     top-k, CC, run-totals and stamp inputs held bit-equal through the
-     plain versions, the old model equal to step 1's phase-2 checkpoint,
-     phase 2's body and seg to its phase 1's; the kernels timed at the
-     one-new-class step's inputs; the launches of every run; and in phase
-     5 the profiled step's Chrome trace through utils/device_time (union
-     busy time within 2 % under the summed kernel times);
+     (one new class a step), its step-2 phase 2 with phase 5's surgery
+     (every image labelled with the new class, a pseudo threshold between
+     that class's top two CAM peaks, the seg bias toward it) so that its
+     factory stamps valid slots on every step, each step's kernel inputs
+     held bit-equal through the plain versions; in each chain step 2's
+     phase-2 step's own top-k, CC, run-totals and stamp inputs held
+     bit-equal through the plain versions, the old model equal to step
+     1's phase-2 checkpoint, phase 2's body and seg to its phase 1's; the
+     kernels timed at the one-new-class step's inputs; the launches of
+     every run; and in phase 5 the profiled step's Chrome trace through
+     utils/device_time (union busy time within 2 % under the summed
+     kernel times);
  15. fixture accuracy, in a process of its own that starts after phase 2
      and runs beside phases 3-16 (its steps are bound by the host): the
      painted-fixture protocol of docs/verification.md through
@@ -111,7 +116,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      painted images at 64^2, batch 4, float32, ResNet-101 at OS16 from
      torch's init, seed 42, 4 loader workers): step 0 for 250 epochs
      (Adam 3e-4, validation at e99, e199, e249), phase 1 and phase 2 for
-     20 epochs each from its checkpoints; every run rc 0, finite losses,
+     10 epochs each from its checkpoints; every run rc 0, finite losses,
      its launches held to its steps and validations, step 0's loss down
      tenfold and its final mAP@.5 above 0; every phase-2 step's kernel
      inputs (the trained models') through the four kernels bit-equal to
@@ -149,6 +154,7 @@ import copy
 import dataclasses
 import functools
 import gc
+import inspect
 import json
 import os
 import signal
@@ -1094,36 +1100,59 @@ def build_training(dev):
     return model, model_old, pl, pg, state, batches
 
 
-def choose_pseudo_thresh(model, pl, pg, batches):
+def choose_pseudo_thresh(model, pl, pg, batches, old=OLD, lift=False):
     """The CPU parity test's surgery at full size: a new class and a pseudo
     threshold that lies between the top two CAM peaks of that class in at
     least one image of every batch (the most such images overall), and a
-    seg bias toward that class, so that those images' image-sized
-    component holds exactly one live peak."""
-    tops = []
+    seg bias toward that class in the newest classifier, so that those
+    images' image-sized component holds exactly one live peak. `old`: the
+    classes before the newest step, background included. With `lift`,
+    the pseudolabeler's bias of each new class is first raised so that
+    the lowest of the images' peaks of its channel reads 1, and the peak
+    generator's 1x1 conv made non-negative with a zero bias, so that the
+    CAM is the PAM-masked channels: a trained channel below 0 everywhere
+    leaves PAM nothing and the CAM flat, without a peak to threshold (the
+    15-1 chain's step 2 on the card)."""
+    kind = batches[0]["image"].device.type
+    bodies = []
     for batch in batches:
         x = batch["image"].permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
-        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
-            _, feats = model.forward_seg(x, interpolate=False)
-            _, cam = pg(pl(feats["body"]), label=batch["l1h"])
-        cam = resize_bilinear(smoothing(cam.float())[:, OLD - 1:], (S, S))
+        with torch.no_grad(), torch.autocast(kind, dtype=torch.bfloat16):
+            bodies.append(model.forward_seg(x, interpolate=False)[1]["body"])
+    new = pg.num_classes - pg.old_classes
+    if lift:
+        with torch.no_grad(), torch.autocast(kind, dtype=torch.bfloat16):
+            low = torch.cat([pl(body)[:, -new:].float().amax(dim=(2, 3))
+                             for body in bodies]).amin(dim=0)
+            pl.cls.bias[-new:] += 1.0 - low
+            pg.extra_conv4.weight.abs_()
+            pg.extra_conv4.bias.zero_()
+    tops = []
+    for body, batch in zip(bodies, batches):
+        with torch.no_grad(), torch.autocast(kind, dtype=torch.bfloat16):
+            _, cam = pg(pl(body), label=batch["l1h"])
+        cam = resize_bilinear(smoothing(cam.float())[:, old - 1:],
+                              tuple(batch["image"].shape[1:3]))
         tops.append(peak_extract_nchw(cam, kernel=15, k=2)[0].cpu().numpy())
     best = None
-    for c in range(NEW):
+    for c in range(tops[0].shape[1]):
         for t in ((conf[b, c, 0] + conf[b, c, 1]) / 2
-                  for conf in tops for b in range(B)):
+                  for conf in tops for b in range(conf.shape[0])):
             hits = [int(((conf[:, c, 0] > t) & (conf[:, c, 1] < t)).sum())
                     for conf in tops]
             if min(hits) > 0 and (best is None or sum(hits) > best[0]):
                 best = (sum(hits), float(t), c)
     if best is None:
-        raise AssertionError("no pseudo threshold lets the factory fire in "
-                             "every batch")
+        raise AssertionError(
+            "no pseudo threshold lets the factory fire in every batch; "
+            "images a batch whose top two CAM peaks differ: " + str(
+                [int((conf[:, :, 0] > conf[:, :, 1]).any(1).sum())
+                 for conf in tops]))
     n, thresh, c = best
     with torch.no_grad():
-        model.cls[1].bias[c] += 10.0
-    return thresh, (n, c + OLD - 1)
+        model.cls[-1].bias[c] += 10.0
+    return thresh, (n, c + old - 1)
 
 
 def train(dev):
@@ -1352,17 +1381,28 @@ def first_step_checked(what, per_step, kept=None, valid=None):
     the same inputs at once, so that no output stays on the card, and
     `kept`, where given, gets each kernel's first arguments and `valid`
     the count of valid slots of each checked stamp call; on leaving,
-    raise if one disagreed or a call never came."""
+    raise if one disagreed or a call never came. It yields `pause`, a
+    context manager in which no call is checked or kept."""
     kept = {} if kept is None else kept
     valid = [] if valid is None else valid
     seen = {name: [] for name in _WRAPPED if per_step[name]}
     saved = {name: getattr(mod, attr)
              for name, (mod, attr, _) in _WRAPPED.items()}
+    paused = []
+
+    @contextlib.contextmanager
+    def pause():
+        paused.append(True)
+        try:
+            yield
+        finally:
+            paused.pop()
 
     def checking(name, real, plain):
         def run(*a, **kw):
             out = real(*a, **kw)
-            if name in seen and len(seen[name]) < per_step[name]:
+            if not paused and name in seen and \
+                    len(seen[name]) < per_step[name]:
                 want = plain(*a, **kw)
                 outs = out if isinstance(out, tuple) else (out,)
                 wants = want if isinstance(want, tuple) else (want,)
@@ -1382,7 +1422,7 @@ def first_step_checked(what, per_step, kept=None, valid=None):
     for name, (mod, attr, plain) in _WRAPPED.items():
         setattr(mod, attr, checking(name, saved[name], plain))
     try:
-        yield
+        yield pause
     finally:
         for name, (mod, attr, _) in _WRAPPED.items():
             setattr(mod, attr, saved[name])
@@ -2519,14 +2559,59 @@ def multistep_runs(task_dir):
     return runs
 
 
-def multistep_chain(root, task, common, what, real):
+# batches an epoch of the CLI's --synthetic data
+SYNTHETIC_BATCHES = inspect.signature(
+    cli.SyntheticLoader).parameters["n_batches"].default
+
+
+def factory_surgery(rec, picked, pause):
+    """`on_trainer` for a phase-2 run: `rec` records the trainer; then,
+    before its epoch, choose_pseudo_thresh's surgery goes onto the loaded
+    models over the epoch's batches, inside `pause` (first_step_checked's):
+    each batch's image labels name every new class, the pseudolabeler's
+    new channels are lifted (`lift`), the seg is biased toward the chosen
+    class and the epoch's step is built with the chosen pseudo
+    threshold. `picked` gets (threshold, (images, class), the surgery's
+    own kernel launches)."""
+    def on_trainer(trainer):
+        rec(trainer)
+        real_epoch = trainer.train_epoch
+
+        def train_epoch(epoch, batches, logger=None):
+            new = trainer.classes[-1]
+            batches = [dict(b) for b in batches]
+            for b in batches:
+                l1h = np.array(b["l1h"], np.float32)
+                l1h[:, -new:] = 1.0
+                b["l1h"] = l1h
+            for m in (trainer.model, trainer.pseudolabeler,
+                      trainer.peakgenerator):
+                m.eval()
+            before = dict(kernels.LAUNCHES)
+            with pause():
+                thresh, pick = choose_pseudo_thresh(
+                    trainer.model, trainer.pseudolabeler,
+                    trainer.peakgenerator,
+                    [trainer._device_batch(b) for b in batches],
+                    old=trainer.old_classes, lift=True)
+            trainer.cfg.pseudo_thresh = thresh
+            picked.append((thresh, pick, {k: kernels.LAUNCHES[k] - before[k]
+                                          for k in before}))
+            return real_epoch(epoch, batches, logger)
+        trainer.train_epoch = train_epoch
+    return on_trainer
+
+
+def multistep_chain(root, task, common, what, real, surgery=False):
     """The recipe's five runs of VOC `task` with `common` (with `real`, a
     data root: loader workers, validation after each run and --sample_num
     at step 2's phase 2, whose validation runs with the center heads'
     biases raised by 0.3): each run's launches held to its steps, its
     validation and its sample forwards; its checkpoint, finite losses;
     step 2's phase-2 step's own kernel inputs bit-equal through the plain
-    versions; at step 2 the old model equal to step 1's phase-2
+    versions (with `surgery`, on --synthetic data: factory_surgery on
+    that run, every step's inputs held so and its pseudo stamp given a
+    valid slot); at step 2 the old model equal to step 1's phase-2
     checkpoint, phase 2's body and seg to its phase 1's, bit for bit.
     Returns the launches of each run, the step-2 phase-2 trainer, the
     kept kernel inputs and the validation set (or None)."""
@@ -2534,6 +2619,8 @@ def multistep_chain(root, task, common, what, real):
     task_dir = os.path.join(ck, "step", f"voc-{task}-ov")
     logdir = os.path.join(root, "logs")
     launches, kept, sampled = {}, {}, []
+    valid, picked = [], []
+    n_checked = SYNTHETIC_BATCHES if surgery else 1
     rec, watch = ChainRecorder(), LoaderWatch()
     real_forward = cli.make_instance_forward
 
@@ -2570,18 +2657,29 @@ def multistep_chain(root, task, common, what, real):
             torch.cuda.synchronize()
             kernels.reset_launches()
             t = time.perf_counter()
-            with (first_step_checked(f"{what} {run}", PER_STEP, kept) if last
-                  else contextlib.nullcontext()):
-                if cli.main(argv, on_trainer=rec) != 0:
+            checked = first_step_checked(
+                f"{what} {run}", {k: v * n_checked for k, v in
+                                  PER_STEP.items()}, kept, valid)
+            with checked if last else contextlib.nullcontext() as pause:
+                on_trainer = factory_surgery(rec, picked, pause) \
+                    if last and surgery else rec
+                if cli.main(argv, on_trainer=on_trainer) != 0:
                     raise AssertionError(f"{what} {run}: main() failed")
             cli.make_instance_forward = real_forward
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
-            launches[run] = dict(kernels.LAUNCHES)
             tr = rec.made[-1]
             m = tr.epochs[0]
             n = m["n_batches"]
             n_val = len(watch.val) if real else 0
+            # the surgery's peak extraction launches top-k once a batch and
+            # nothing else; those launches are the smoke's, not the path's
+            own = picked[0][2] if last and surgery else {}
+            if own and own != {k: n if k == "topk" else 0 for k in own}:
+                raise AssertionError(f"{what} {run}: the surgery launched "
+                                     f"{own}, expected top-k {n} times")
+            launches[run] = {k: v - own.get(k, 0)
+                             for k, v in kernels.LAUNCHES.items()}
             want = {k: v * n + PER_REQUEST[k] * n_samples +
                     (VOC_PER_VAL[kind][k] * n_val if real else 0)
                     for k, v in CHAIN_PER_STEP[kind].items()}
@@ -2615,6 +2713,24 @@ def multistep_chain(root, task, common, what, real):
         cli.build_data, cli.make_instance_forward = watch.real, real_forward
     t2 = rec.made[-1]
     rec.made.clear()
+    if surgery:
+        # the stamps of a step: its pseudo stamp, then its refined one
+        pseudo = valid[0::2]
+        (thresh, (hits, c), own), = picked
+        # the seg bias the surgery added, on phase 1's weights
+        key = f"cls.{len(t2.classes) - 1}.bias"
+        p1_frozen[key] = p1_frozen[key].clone()
+        p1_frozen[key][c - (t2.old_classes - 1)] += 10.0
+        log(f"{what} step 2 phase 2 with the factory surgery (pseudo_thresh "
+            f"{thresh:.6f}: class {c} has exactly one peak above it in {hits}"
+            f" images of the {len(pseudo)} batches; seg bias +10; the "
+            f"surgery's own launches {own}): valid "
+            f"step-2 slots pseudo/refined a step "
+            f"{list(zip(pseudo, valid[1::2]))}, {sum(pseudo)} pseudo in all; "
+            f"the four kernels bit-equal to the plain versions on every step")
+        if len(pseudo) != SYNTHETIC_BATCHES or not all(v > 0 for v in pseudo):
+            raise AssertionError(f"{what}: a step-2 pseudo stamp had no "
+                                 f"valid slot: {valid}")
 
     # the checkpoint identities at step 2
     m1 = load_checkpoint(os.path.join(task_dir, "ms_1"))["model"]
@@ -2831,7 +2947,8 @@ def multistep(rs):
     with tempfile.TemporaryDirectory() as root:
         t = time.perf_counter()
         out["15-1"], t2, kept, _ = multistep_chain(root, "15-1", CHAIN_COMMON,
-                                                   "15-1 chain", real=False)
+                                                   "15-1 chain", real=False,
+                                                   surgery=True)
         log(f"15-1 chain: {time.perf_counter() - t:.1f} s")
         chain_device_time(os.path.join(root, "trace", "step_2_phase_2"),
                           "15-1 step 2 phase 2")
@@ -2846,9 +2963,11 @@ def multistep(rs):
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 # the painted-fixture protocol of docs/verification.md (seed 42): step 0
-# in full, 250 epochs of 12 batches; phase 1 and phase 2 cut to 20 epochs
+# in full, 250 epochs of 12 batches; phase 1 and phase 2 cut to 10 epochs,
+# so that the process, the run's longest, ends inside FIXTURE_TIMEOUT_S on
+# a slow host
 FIXTURE_ARGS = ["--paint", "--wrap", "--images", "48", "--size", "64",
-                "--batch", "4", "--epochs", "250", "--cl_epochs", "20",
+                "--batch", "4", "--epochs", "250", "--cl_epochs", "10",
                 "--lr0", "3e-4", "--seed", "42"]
 FIXTURE_RUNS = {"step0": "step 0", "phase1": "phase 1", "phase2": "phase 2"}
 FIXTURE_TIMEOUT_S = 1100                   # from the process's start
@@ -2871,7 +2990,7 @@ def fixture_accuracy(args=None):
     runner's flags `args` or FIXTURE_ARGS (48 painted images at 64^2,
     batch 4, float32, ResNet-101 at OS16 from torch's init, 4 loader
     workers): step 0 for 250 epochs (Adam 3e-4, validation at e99, e199
-    and e249), then phase 1 and phase 2 for 20 epochs each from its
+    and e249), then phase 1 and phase 2 for 10 epochs each from its
     checkpoints. Every run rc 0 with finite losses and its launches held
     to its steps and validations; step 0's last epoch loss under a tenth
     of its first, its final mAP@.5 above 0; every phase-2 step's kernel

@@ -21,6 +21,9 @@ Everything works on state dicts in the upstream key layout (``body.*``,
    the port's :class:`~cl4wsis_tpu_torch.models.CL4WSISModel`: HWIO kernels
    become OIHW weights and every flax path its upstream torch key (the
    inverse of the JAX ``convert_torch_cl4wsis``).
+5. :func:`convert_jax_adam` / :func:`load_adam_state`: optax's Adam
+   moments and count into ``torch.optim.Adam``'s per-parameter state, so
+   a run carried over from JAX goes on with the optimizer's history.
 """
 
 from __future__ import annotations
@@ -263,3 +266,35 @@ def convert_jax_variables(variables: Dict[str, Any]
             key = f"{_module_key(path[:-1], wide)}.{fields[path[-1]]}"
             sd[key] = torch.from_numpy(np.array(arr))  # a writable copy
     return sd
+
+
+def convert_jax_adam(mu: Dict[str, Any], nu: Dict[str, Any], count: Any
+                     ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """optax ``scale_by_adam``'s state of the model (its ``mu`` and ``nu``
+    trees, shaped as the model's params, numpy leaves, and its ``count``
+    of updates taken) -> ``torch.optim.Adam``'s state of each parameter,
+    by state-dict key: ``exp_avg``, ``exp_avg_sq`` and ``step``. Both
+    read the count the same way in their bias corrections, so ``step`` is
+    the count."""
+    exp_avg = convert_jax_variables({"params": mu})
+    exp_avg_sq = convert_jax_variables({"params": nu})
+    step = float(np.asarray(count))
+    return {k: {"step": torch.tensor(step), "exp_avg": exp_avg[k],
+                "exp_avg_sq": exp_avg_sq[k]} for k in exp_avg}
+
+
+def load_adam_state(model: torch.nn.Module,
+                    optimizer: torch.optim.Optimizer,
+                    state: Dict[str, Dict[str, torch.Tensor]]) -> None:
+    """Put :func:`convert_jax_adam`'s `state` into `optimizer`, an Adam
+    over `model`'s parameters: each parameter of a param group gets its
+    entry, on its device (a frozen parameter sits in no group and gets
+    none). A trained parameter missing from `state` raises KeyError."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            s = state[names[id(p)]]
+            optimizer.state[p] = {
+                "step": s["step"].clone(),
+                "exp_avg": s["exp_avg"].to(p.device, p.dtype).clone(),
+                "exp_avg_sq": s["exp_avg_sq"].to(p.device, p.dtype).clone()}

@@ -22,6 +22,7 @@ from cl4wsis_tpu_torch.utils.visualize import sample_image
 from tests.test_data import _write_fake_voc
 from tests.test_torch_cli_data import STEP0 as VOC_STEP0
 from tests.test_torch_cli_data import _run as voc_run
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 COMMON = ["--synthetic", "true", "--tiny", "true", "--dataset", "voc",
           "--task", "15-5", "--batch_size", "8", "--crop_size", "64",

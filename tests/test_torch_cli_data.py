@@ -23,6 +23,7 @@ from cl4wsis_tpu_torch.data.loader import Loader
 from cl4wsis_tpu_torch.train import schedule
 from tests.test_coco_data import _write_fake_coco
 from tests.test_data import _write_fake_voc
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TINY = ["--tiny", "true", "--epochs", "1", "--batch_size", "8",
         "--crop_size", "48", "--crop_size_val", "48", "--dtype", "float32",

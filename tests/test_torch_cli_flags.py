@@ -12,6 +12,7 @@ import pytest
 from cl4wsis_tpu.cli.config import parse_config as jax_parse_config
 from cl4wsis_tpu_torch.cli.config import Config, parse_config
 from tests.test_cli_flags import REFERENCE_FLAGS
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 INERT = ["--crop_val", "--unce", "--pl_ckpt", "x.pth", "--icarl_importance",
          "2.0", "--icarl_disjoint"]

@@ -23,6 +23,7 @@ from tests.test_coco_data import _write_fake_coco
 from tests.test_data import _write_fake_voc
 from tests.test_torch_cli_data import (PHASE1, PHASE2, STEP0, _ck, _results,
                                        _run)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 WRN16 = (1, 1, 1, 1, 1, 1)
 

@@ -26,6 +26,7 @@ from cl4wsis_tpu_torch.metrics.stream import StreamSegMetrics
 from cl4wsis_tpu_torch.metrics.voc_ap import InstanceAPAccumulator
 from cl4wsis_tpu_torch.train import losses
 from cl4wsis_tpu_torch.wss import losses as wss_losses
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 2

@@ -43,6 +43,7 @@ import torch
 from cl4wsis_tpu_torch.cli import main as cli
 from cl4wsis_tpu_torch.cli.config import parse_config
 from cl4wsis_tpu_torch.core import dist
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 COMMON = ["--synthetic", "true", "--tiny", "true", "--dataset", "voc",
           "--task", "15-5", "--crop_size", "64", "--dtype", "float32",

@@ -24,6 +24,7 @@ from cl4wsis_tpu_torch.train import schedule
 from cl4wsis_tpu_torch.train.phase2 import make_phase2_train_step
 from cl4wsis_tpu_torch.train.state import TrainState
 from cl4wsis_tpu_torch.wss import PeakGenerator, PseudoLabeler
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 OLD, NEW = 3, 2
 TOT = OLD + NEW

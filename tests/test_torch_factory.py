@@ -19,6 +19,7 @@ from cl4wsis_tpu.ops import labelgen as jlabelgen
 from cl4wsis_tpu.ops import pseudo_labels as jpl
 from cl4wsis_tpu.ops import refine as jrefine
 from cl4wsis_tpu_torch.ops import cc, grouping, labelgen, pseudo_labels, refine
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 # ------------------------------------------------------------------ stamp
 

@@ -16,10 +16,10 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 from PIL import Image
 
 from cl4wsis_tpu_torch.data.fixture import write_fake_voc
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -91,18 +91,7 @@ def test_stage_args_match_the_jax_runner(stage, torch_init):
 
 
 @pytest.fixture(scope="module")
-def one_thread():
-    """Torch on one thread: under a test run's parallel workers the tiny
-    models' ops run faster so than on a thread a core in each worker
-    (the example's 2 steps took 136 s there on all threads, 2 s alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
-@pytest.fixture(scope="module")
-def tiny_run(tmp_path_factory, one_thread):
+def tiny_run(tmp_path_factory):
     """The runner at --tiny --device cpu on 8 painted images, 1 epoch a
     stage (2 batches of 4): its records."""
     root = tmp_path_factory.mktemp("fixture")
@@ -146,7 +135,7 @@ def test_infer_example_serves_the_phase2_checkpoint(tiny_run, tmp_path):
         assert 1 <= r["category_id"] <= 20 and r["image_id"] == 0
 
 
-def test_train_synthetic_example_two_steps(one_thread):
+def test_train_synthetic_example_two_steps():
     example = _load("examples/train_synthetic_torch.py",
                     "train_synthetic_torch")
     res = example.main(2, device="cpu")

@@ -5,6 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from cl4wsis_tpu.models.torch_init import torch_family_init
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _moments(a):

@@ -23,6 +23,7 @@ from cl4wsis_tpu.wss import PseudoLabeler as JaxPL
 from cl4wsis_tpu_torch.cl.ckpt import convert_jax_variables
 from cl4wsis_tpu_torch.models import make_model
 from cl4wsis_tpu_torch.wss import PeakGenerator, PseudoLabeler
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 STD_RTOL = 0.10
 

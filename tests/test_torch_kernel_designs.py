@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from cl4wsis_tpu_torch.ops import labelgen, segsort
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 CSRC = Path(labelgen.__file__).resolve().parents[1] / "csrc"
 

@@ -20,6 +20,7 @@ from cl4wsis_tpu.data import voc as jax_voc
 from cl4wsis_tpu_torch.data import loader, voc
 from cl4wsis_tpu_torch.train.trainer import Trainer
 from tests.test_data import _write_fake_voc
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 SEED = 7
 

@@ -13,6 +13,7 @@ from cl4wsis_tpu.models import make_model as jax_make_model
 from cl4wsis_tpu_torch.cl.ckpt import convert_jax_variables
 from cl4wsis_tpu_torch.models import make_model
 from cl4wsis_tpu_torch.models.assembly import backbone_channels
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 CLASSES = (16, 5)
 TINY = (1, 1, 1, 1)

@@ -32,6 +32,7 @@ from cl4wsis_tpu_torch.train.state import TrainState
 from cl4wsis_tpu_torch.wss import PeakGenerator, PseudoLabeler
 from tests.test_torch_train import (BETA, GROUPS, LR, NMS_KERNEL, SIGMA, SIZE,
                                     TINY, _nchw, _nhwc, _np, _RecordedDropout)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 # ------------------------------------------------- expansion, two steps
 

@@ -15,6 +15,7 @@ import torch
 from cl4wsis_tpu_torch.cl.ckpt import load_checkpoint
 from cl4wsis_tpu_torch.cli import main as cli
 from cl4wsis_tpu_torch.train import schedule
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 COMMON = ["--synthetic", "true", "--tiny", "true", "--dataset", "voc",
           "--task", "10-5", "--batch_size", "2", "--crop_size", "64",
@@ -33,15 +34,11 @@ PHASE2 = ["--weakly", "true", "--phase", "2", "--alpha", "0.5", "--lr",
 @pytest.fixture
 def root(tmp_path, monkeypatch):
     """The checkpoint root; the chain's five runs take 2 synthetic batches
-    each, and their tiny ops run on one thread, which under a test run's
-    parallel workers is faster than a thread a core in each of them."""
+    each (torch on one thread: tests/torch_one_thread.py)."""
     path = tmp_path / "checkpoints"
     monkeypatch.setattr(cli, "SyntheticLoader",
                         functools.partial(cli.SyntheticLoader, n_batches=2))
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
     yield path
-    torch.set_num_threads(threads)
     shutil.rmtree(path, ignore_errors=True)
 
 

@@ -23,6 +23,7 @@ from cl4wsis_tpu_torch.wss import PeakGenerator, PseudoLabeler
 from tests.test_torch_multistep import port_and_jax, wss_to_jax
 from tests.test_torch_phase1 import (GROUPS, LR, RED_BN_ATOL, SIZE,
                                      UPDATE_RTOL, _np, update_readings)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 # the tiny stand-in of 15-1's step 2: 3 + 1 classes before, 1 new
 CLASSES = (3, 1, 1)

@@ -20,6 +20,7 @@ from cl4wsis_tpu_torch.core.abn import ABN
 from cl4wsis_tpu_torch.core.norms import ABR, AIN, norm_factory
 from tests.test_data import _write_fake_voc
 from tests.test_torch_cli_data import STEP0, _results, _run
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 OUT_ATOL, STATS_ATOL, GRAD_RTOL = 1e-5, 1e-6, 1e-5
 C = 6

@@ -20,6 +20,7 @@ from cl4wsis_tpu_torch.ops.peaks import max_pool_same
 from cl4wsis_tpu_torch.ops.pseudo_labels import component_stats
 from cl4wsis_tpu_torch.ops.resize import resize_bilinear
 from cl4wsis_tpu_torch.ops.topk import topk_hier, topk_plain
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 cv2 = pytest.importorskip("cv2")
 

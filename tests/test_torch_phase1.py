@@ -27,6 +27,7 @@ from cl4wsis_tpu_torch.train import phase1, schedule
 from cl4wsis_tpu_torch.train.state import TrainState
 from cl4wsis_tpu_torch.wss import PeakGenerator, PseudoLabeler
 from cl4wsis_tpu_torch.wss import losses as wss
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 OLD, NEW = 3, 2
 TOT = OLD + NEW

@@ -23,6 +23,7 @@ from cl4wsis_tpu_torch.models import make_model
 from cl4wsis_tpu_torch.ops.instance_postproc import get_ins_map
 from cl4wsis_tpu_torch.serve import InstancePrediction, Predictor
 from cl4wsis_tpu_torch.train.trainer import Trainer
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -24,6 +24,7 @@ from cl4wsis_tpu_torch.models import make_model
 from cl4wsis_tpu_torch.ops import labelgen
 from cl4wsis_tpu_torch.train import losses, schedule
 from cl4wsis_tpu_torch.train.step0 import init_state, make_step0_train_step
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 SIZE, BS, TINY = 64, 2, (1, 1, 1, 1)
 CLASSES = (3,)             # background + 2 thing classes

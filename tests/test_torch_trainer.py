@@ -29,6 +29,7 @@ from cl4wsis_tpu_torch.train import trainer as trainer_mod
 from cl4wsis_tpu_torch.models import assembly
 from cl4wsis_tpu_torch.models.wide_resnet import WiderResNet38A2
 from cl4wsis_tpu_torch.train.trainer import Trainer, pretrained_name
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 WRN16 = (1, 1, 1, 1, 1, 1)
 TINY = (1, 1, 1, 1)

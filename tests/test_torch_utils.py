@@ -25,6 +25,7 @@ from cl4wsis_tpu_torch.models import tta
 from cl4wsis_tpu_torch.utils import device_time
 from cl4wsis_tpu_torch.utils import visualize as vis
 from cl4wsis_tpu_torch.utils.logging import Logger, StepTimer
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 # ------------------------------------------------------------- visualize
 

@@ -39,6 +39,7 @@ from cl4wsis_tpu_torch.models.resnet import ResNet
 from cl4wsis_tpu_torch.models.wide_resnet import (WiderResNet38A2,
                                                   wider_resnet16_a2)
 from tests.test_torch_model import jax_tiny_variables
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 WRN16 = (1, 1, 1, 1, 1, 1)
 SIZE = 32
