@@ -49,7 +49,11 @@ Phases, each of which must pass (the script exits non-zero otherwise):
   8. chain: the CLI (cl4wsis_tpu_torch.cli.main.main) three times in this
      process, step 0 -> step 1 phase 1 -> step 1 phase 2, VOC 15-5,
      ResNet-101, batch 16 at 512^2, bfloat16, 4 synthetic batches an
-     epoch, checkpoints in a temporary directory removed afterwards; each
+     epoch, from the CLI's default start (flax's init families: the step-0
+     trainer's first body conv, a decoder conv and cls.0 at std within 10 %
+     of sqrt(1 / fan_in) and inside the truncation bound, their classifier
+     biases exactly 0, logged with the step-0 loss and the card),
+     checkpoints in a temporary directory removed afterwards; each
      checkpoint written, phase 2's body and seg equal to the phase-1
      checkpoint's and its old model to step 0's, bit for bit; the kernel
      launches of each run held to its steps;
@@ -114,18 +118,18 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      painted-fixture protocol of docs/verification.md through
      scripts/run_rebuild_fixture_torch.py's stages and the CLI (48
      painted images at 64^2, batch 4, float32, ResNet-101 at OS16 from
-     torch's init, seed 42, 4 loader workers): step 0 for 250 epochs
-     (Adam 3e-4, validation at e99, e199, e249), phase 1 and phase 2 for
-     10 epochs each from its checkpoints; every run rc 0, finite losses,
-     its launches held to its steps and validations, step 0's loss down
-     tenfold and its final mAP@.5 above 0; every phase-2 step's kernel
-     inputs (the trained models') through the four kernels bit-equal to
-     the plain versions, the valid slots its factory stamped counted; a
-     traced step a run through utils/device_time. In this process, after
-     phase 14, examples/train_synthetic_torch.py for 300 steps. The
-     `fixture` JSON line: loss trajectories, each validation's metrics,
-     step medians, traced device ms, wall seconds, the TF32 state, the
-     example's mAP;
+     torch's init (--torch_init), seed 42, 4 loader workers): step 0
+     for 250 epochs (Adam 3e-4, validation at e99, e199, e249), phase 1
+     and phase 2 for 10 epochs each from its checkpoints; every run rc 0,
+     finite losses, its launches held to its steps and validations, step
+     0's loss down tenfold and its final mAP@.5 above 0; every phase-2
+     step's kernel inputs (the trained models') through the four kernels
+     bit-equal to the plain versions, the valid slots its factory
+     stamped counted; a traced step a run through utils/device_time. In
+     this process, after phase 14, examples/train_synthetic_torch.py for
+     300 steps. The `fixture` JSON line: loss trajectories, each
+     validation's metrics, step medians, traced device ms, wall seconds,
+     the TF32 state, the example's mAP;
  16. dist: (a) the CLI under torch.distributed.run at world 1 with
      CL4WSIS_MULTIHOST=1 and NCCL, one process whose cli.main makes and
      destroys the group in each run: step 0, phase 1, phase 2, phase 2
@@ -169,8 +173,10 @@ import torch
 from cl4wsis_tpu_torch.cl import tasks
 from cl4wsis_tpu_torch.cl.ckpt import load_checkpoint
 from cl4wsis_tpu_torch.cli import main as cli
+from cl4wsis_tpu_torch.core import abn
 from cl4wsis_tpu_torch.data.synthetic import synthetic_batches
 from cl4wsis_tpu_torch.models import make_model
+from cl4wsis_tpu_torch.models.flax_init import TRUNC_STD, fan_in
 from cl4wsis_tpu_torch.ops import cc, kernels, labelgen, segsort, topk
 from cl4wsis_tpu_torch.ops.instance_postproc import get_ins_map
 from cl4wsis_tpu_torch.ops.peaks import peak_extract_nchw, smoothing
@@ -1542,19 +1548,31 @@ CHAIN_RUNS = {
 }
 CHAIN_PER_STEP = {"step 0": PER_STEP0, "phase 1": PER_PHASE1,
                   "phase 2": PER_STEP}
+# the fresh layers whose start the chain's step 0 shows (the CLI's
+# default, flax's init families): kernels and the biases they must hold
+START_KERNELS = ("body.mod1.conv1.weight",
+                 "decoder.instance_decoder.aspp.project.0.weight",
+                 "cls.0.weight")
+START_BIASES = ("cls.0.bias", "instance_head.classifier.center.cls.0.bias",
+                "instance_head.classifier.offset.cls.0.bias")
+START_STD_RTOL = 0.10
 
 
 class ChainRecorder:
     """Given to cli.main as `on_trainer`: keeps every trainer the CLI
-    builds, its epoch metrics, the times of its checkpoint saves and
-    loads (each ending in a synchronize) and the last batch it put on the
-    card."""
+    builds, a copy of its START_KERNELS and START_BIASES as the trainer
+    built them (before any checkpoint is loaded or step taken), its epoch
+    metrics, the times of its checkpoint saves and loads (each ending in
+    a synchronize) and the last batch it put on the card."""
 
     def __init__(self):
         self.made = []
 
     def __call__(self, trainer):
         trainer.times, trainer.epochs = {}, []
+        sd = trainer.model.state_dict()
+        trainer.start = {k: sd[k].detach().clone()
+                         for k in START_KERNELS + START_BIASES if k in sd}
 
         def timed(name, method):
             def run(*a):
@@ -1583,10 +1601,45 @@ class ChainRecorder:
         self.made.append(trainer)
 
 
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def check_start(trainer, loss):
+    """The step-0 trainer's fresh layers in the CLI's default start,
+    flax's families: each of START_KERNELS at std within START_STD_RTOL of
+    sqrt(1 / fan_in) and inside the truncation bound 2 sqrt(1 / fan_in) /
+    TRUNC_STD, each of START_BIASES exactly 0. Logs them beside the run's
+    epoch loss and the card."""
+    got = {}
+    for k in START_KERNELS:
+        w = trainer.start[k].double()
+        want = (1.0 / fan_in(w)) ** 0.5
+        got[k] = {"fan_in": fan_in(w), "std": float(w.std()),
+                  "std_over_want": float(w.std()) / want,
+                  "max_over_bound": float(w.abs().max()) * TRUNC_STD
+                  / (2 * want)}
+    biases = {k: float(trainer.start[k].abs().max()) for k in START_BIASES}
+    log("chain step 0 start (flax's families, --torch_init false): " +
+        json.dumps({"kernels": got, "bias_abs_max": biases,
+                    "epoch_loss": loss, "card": card_line()}))
+    bad = [k for k, r in got.items()
+           if abs(r["std_over_want"] - 1) >= START_STD_RTOL
+           or r["max_over_bound"] > 1 + 1e-6]
+    bad += [k for k, v in biases.items() if v != 0]
+    if bad:
+        raise AssertionError(f"chain step 0: {bad} not in flax's families")
+
+
 def chain(root):
-    """Phase 8: the CLI chain at full width; returns the launches of each
-    run, the phase-2 trainer and each run's epoch metrics and step times
-    (ms)."""
+    """Phase 8: the CLI chain at full width from the CLI's default start
+    (its step-0 trainer's fresh layers checked in flax's families); returns
+    the launches of each run, the phase-2 trainer and each run's epoch
+    metrics and step times (ms)."""
     step0_ckpt = os.path.join(root, "ck", "step", "voc-15-5-ov", "exp_0")
     p1_ckpt = os.path.join(root, "ck", "step", "voc-15-5-ov", "exp_p1_1")
     extra = {"phase 1": ["--step_ckpt", step0_ckpt],
@@ -1624,6 +1677,8 @@ def chain(root):
             f"{os.path.getsize(path) / 2 ** 30:.3f} GiB, " +
             ", ".join(f"{k} {v:.3f} s" for k, v in tr.times.items()) +
             f", launches {launches[run]}")
+        if run == "step 0":
+            check_start(tr, m["loss"])
         if run == "phase 2":
             log(f"chain phase 2 epoch means: pseudo_weight_px "
                 f"{m['pseudo_weight_px']:.1f}, label_truncated "
@@ -2963,12 +3018,13 @@ def multistep(rs):
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 # the painted-fixture protocol of docs/verification.md (seed 42): step 0
-# in full, 250 epochs of 12 batches; phase 1 and phase 2 cut to 10 epochs,
-# so that the process, the run's longest, ends inside FIXTURE_TIMEOUT_S on
-# a slow host
+# in full, 250 epochs of 12 batches, from torch's init as the protocol
+# starts (--torch_init); phase 1 and phase 2 cut to 10 epochs, so that
+# the process, the run's longest, ends inside FIXTURE_TIMEOUT_S on a slow
+# host and the whole run inside 1000 s
 FIXTURE_ARGS = ["--paint", "--wrap", "--images", "48", "--size", "64",
                 "--batch", "4", "--epochs", "250", "--cl_epochs", "10",
-                "--lr0", "3e-4", "--seed", "42"]
+                "--lr0", "3e-4", "--seed", "42", "--torch_init"]
 FIXTURE_RUNS = {"step0": "step 0", "phase1": "phase 1", "phase2": "phase 2"}
 FIXTURE_TIMEOUT_S = 1100                   # from the process's start
 EXAMPLE_STEPS = 300
@@ -3208,7 +3264,7 @@ def dist_steps(what, step, state, batches, dev, per_step, seed=3):
     makes and the ABN layers whose statistics were summed, and the
     parameters before, after the first step and after the last (on the
     CPU)."""
-    from cl4wsis_tpu_torch.core import abn, dist
+    from cl4wsis_tpu_torch.core import dist
     params = dict(state.model.named_parameters())
     before = {k: v.detach().cpu().clone() for k, v in params.items()}
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -3481,7 +3537,6 @@ def abn_sums_in_halves():
     """In one process, ABN's float32 batch sums taken over the two halves
     of the batch and added, as 2 ranks take them: the order of the sums is
     all that changes."""
-    from cl4wsis_tpu_torch.core import abn
     real = abn.batch_stats
 
     def halves(xf):
@@ -3493,7 +3548,8 @@ def abn_sums_in_halves():
         return mean, sums[C:2 * C] / sums[-1] - torch.square(mean), sums[-1]
     abn.batch_stats = halves
     try:
-        yield
+        with abn.summed_stats():
+            yield
     finally:
         abn.batch_stats = real
 
@@ -3603,9 +3659,12 @@ def dist_phase(chain_seen, rs):
         # (b) the one-process references on the card, then the ranks
         dev = torch.device("cuda")
         t = time.perf_counter()
-        one_p2, surgery = dist_phase2(dev)
-        one_s0 = dist_step0(dev)
-        one_tiny = dist_tiny(dev)
+        # ABN's statistics from the sums, as the ranks take them: one
+        # process otherwise takes them in the fused batch norm
+        with abn.summed_stats():
+            one_p2, surgery = dist_phase2(dev)
+            one_s0 = dist_step0(dev)
+            one_tiny = dist_tiny(dev)
         with abn_sums_in_halves():
             floor_p2, _ = dist_phase2(dev, surgery)
             floor_s0 = dist_step0(dev)
@@ -3714,10 +3773,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0])
+    log(card_line())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()

@@ -3,10 +3,11 @@
 
 One difference, which follows the reference: ``--device`` is a real field,
 the device every entry point runs on ("cuda" unless the caller asks for
-"cpu"); the JAX package accepts and ignores it. ``--torch_init`` is
-accepted and changes nothing: the port's layers always draw torch's init
-families, with upstream's explicit inits where upstream sets them, which is
-where the JAX package's ``--torch_init true`` starts. ``--grain`` selects
+"cpu"); the JAX package accepts and ignores it. ``--torch_init`` picks
+the fresh layers' init families as in the JAX package: flax's (truncated
+lecun-normal kernels, zero biases; ``models/flax_init``) by default,
+torch's under ``--torch_init true``; upstream's explicit inits (the ASPP
+head, the PeakGenerator's ``extra_conv4``) stay in both. ``--grain`` selects
 the loader the port always uses, ``data/loader.Loader``, whose
 ``--num_workers`` worker processes stand in for grain's.
 
@@ -67,7 +68,7 @@ class Config:
     seed: int = 42
     dtype: str = "bfloat16"
     device: str = "cuda"            # cuda | cpu
-    # Accepted and inert (see the module docstring).
+    # fresh layers in torch's init families instead of flax's
     torch_init: bool = False
 
     # CL / weakly

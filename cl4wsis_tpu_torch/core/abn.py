@@ -3,19 +3,25 @@
 Eval: ``(x - running_mean) * rsqrt(running_var + eps) * weight + bias`` in
 float32 with the output in the input's dtype, then the activation.
 
-Train: the statistics of the batch over (N, H, W), in float32, as the JAX
-module takes them: mean and E[x^2] - mean^2 (not Welford). In a run over
-several ranks the batch is the global one: the sums of x and x^2 and the
-count go over ranks in one all-reduce a layer, whose backward carries the
-cross-rank terms (``core/dist.all_sum``). The running stats move by flax
-momentum 0.9 (torch's 0.1), the running var unbiased by n / (n - 1), n the
-global count. The weight is used as stored (no abs). Parameter and buffer
-names follow torch BN, so a state dict carries the upstream keys. While a
-``--remat`` block is recomputed (``core/remat.recomputing``) the running
-stats stay where the forward left them.
+Train: the statistics of the batch over (N, H, W), in float32. On one
+rank they come from ``F.batch_norm`` in training mode: one fused launch
+forward and one backward, where the JAX module's formula (mean and
+E[x^2] - mean^2, not Welford) takes ~55 launches a layer; the two differ
+by float32 rounding. Over several ranks the batch is the global one,
+taken by that formula: the sums of x and x^2 and the count go over ranks
+in one all-reduce a layer, whose backward carries the cross-rank terms
+(``core/dist.all_sum``). :func:`summed_stats` takes one rank's statistics
+so too, to hold the ranks against one process. The running stats move by
+flax momentum 0.9 (torch's 0.1), the running var unbiased by n / (n - 1),
+n the global count. The weight is used as stored (no abs). Parameter and
+buffer names follow torch BN, so a state dict carries the upstream keys.
+While a ``--remat`` block is recomputed (``core/remat.recomputing``) the
+running stats stay where the forward left them.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +32,21 @@ from cl4wsis_tpu_torch.core.remat import recomputing
 
 ACTIVATIONS = ("leaky_relu", "elu", "identity", "relu")
 MOMENTUM = 0.9   # flax convention: running = 0.9 * running + 0.1 * batch
+# set by summed_stats for the whole process, not a thread: a --remat
+# recompute runs in autograd's thread and must take the forward's path
+_SUMMED = {"on": False}
+
+
+@contextlib.contextmanager
+def summed_stats():
+    """Within it ABN takes one rank's statistics from the sums of x and
+    x^2, as a run over several ranks takes the global batch's."""
+    before = _SUMMED["on"]
+    _SUMMED["on"] = True
+    try:
+        yield
+    finally:
+        _SUMMED["on"] = before
 
 
 def activate(y: torch.Tensor, activation: str, param: float,
@@ -102,6 +123,15 @@ class ABN(nn.Module):
 
     def _train_norm(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
+        if not (dist.active() or _SUMMED["on"]) and xf.numel() > xf.shape[1]:
+            # one rank (and more than one value a channel, which the fused
+            # norm needs): the fused batch norm, momentum in torch's sense;
+            # momentum 0 while recomputing leaves the running stats as they
+            # are and saves what the forward saved
+            return F.batch_norm(
+                xf, self.running_mean, self.running_var, self.weight,
+                self.bias, True, 0.0 if recomputing() else 1.0 - MOMENTUM,
+                self.eps)
         mean, var, n = batch_stats(xf)
         update_running(self, mean, unbiased(var, n), MOMENTUM)
         inv = torch.rsqrt(var + self.eps) * self.weight

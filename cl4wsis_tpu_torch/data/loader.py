@@ -11,18 +11,26 @@ process (with ``persistent_workers`` the workers would otherwise keep
 epoch 0 for ever). Batches come out in order, so their contents do not
 depend on the number of workers.
 
-The workers are started with the ``spawn`` method, from a fresh import:
-the trainer has initialised CUDA (and started threads) before the first
-epoch starts them, and a child forked from such a process inherits a CUDA
-context it must not use and locks held by threads that do not exist in
-it. The datasets give numpy and the mask library is host-only, so a
-worker never touches the card. Spawning costs each worker one import of
-the package and of the main module, once: the workers persist across
-epochs until :meth:`Loader.close`.
+The workers are started with the ``forkserver`` method: the trainer has
+initialised CUDA (and started threads) before the first epoch starts
+them, and a child forked from such a process inherits a CUDA context it
+must not use and locks held by threads that do not exist in it. The fork
+server is a fresh interpreter, started once a process, that imports
+numpy, torch and the modules of this package the process has imported,
+and never touches the card; the only threads it holds are numpy's BLAS
+pool, which handles a fork, as under torch's default ``fork`` start.
+Each worker is forked from it and imports only the main module's own
+body, where ``spawn`` paid the import of torch and of the package in
+every worker (10-15 s for four workers beside a busy trainer on the
+card). The datasets give numpy and the mask library is host-only, so a
+worker never touches the card. The workers persist across epochs until
+:meth:`Loader.close`.
 """
 
 from __future__ import annotations
 
+import multiprocessing
+import sys
 from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
@@ -33,6 +41,15 @@ def collate(samples) -> Dict[str, torch.Tensor]:
     """Stack each key of the samples into a CPU tensor; drop `fname`."""
     return {k: torch.from_numpy(np.stack([s[k] for s in samples]))
             for k in samples[0] if k != "fname"}
+
+
+def worker_context() -> multiprocessing.context.BaseContext:
+    """The forkserver context, its server (when this call starts it) to
+    import numpy, torch and the modules of this package imported here."""
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(["numpy", "torch"] + sorted(
+        m for m in sys.modules if m.split(".")[0] == __name__.split(".")[0]))
+    return ctx
 
 
 class EpochBatchSampler(torch.utils.data.Sampler):
@@ -86,7 +103,7 @@ class Loader:
                 num_workers=self.num_workers, collate_fn=collate,
                 pin_memory=self.pin_memory, persistent_workers=workers,
                 prefetch_factor=2 if workers else None,
-                multiprocessing_context="spawn" if workers else None)
+                multiprocessing_context=worker_context() if workers else None)
         return self._loader
 
     def epoch(self, epoch: int) -> Iterator[Dict[str, torch.Tensor]]:

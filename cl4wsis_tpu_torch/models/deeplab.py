@@ -6,8 +6,9 @@ Module names give the upstream keys: ``map_convs.{0-3}``, ``map_bn``,
 ``pool_red_conv``, ``red_bn``; the classifier's ``{i}``.
 
 The head's convolutions take upstream's explicit init, xavier-normal with
-the leaky-ReLU(0.01) gain, as the JAX head does; the classifier keeps
-torch's default, where the JAX package reaches it with ``--torch_init``.
+the leaky-ReLU(0.01) gain, as the JAX head does; the classifier is built
+in torch's default family, which the trainer re-draws in flax's unless
+``--torch_init`` (``models/flax_init``).
 """
 
 from __future__ import annotations

@@ -16,6 +16,11 @@ first, keeps updating the model's own parameters. The old model is a model
 of its own, loaded from the previous step's checkpoint into its own
 tensors.
 
+Fresh layers start where the JAX CLI's start at the same ``--torch_init``:
+in flax's init families by default (``models/flax_init``), in torch's
+under ``--torch_init true``, each with upstream's explicit inits where
+upstream sets them.
+
 Over several ranks (``CL4WSIS_MULTIHOST=1`` under ``torchrun``,
 ``core/dist``) each rank trains on its card, ``cuda:$LOCAL_RANK``, with
 its shard of every global batch; the steps sum the gradients over ranks.
@@ -39,6 +44,7 @@ from cl4wsis_tpu_torch.cl.ckpt import (ckpt_path, expand_for_new_step,
                                        save_checkpoint, tree_merge)
 from cl4wsis_tpu_torch.core import dist
 from cl4wsis_tpu_torch.models import make_model
+from cl4wsis_tpu_torch.models.flax_init import flax_family_init
 from cl4wsis_tpu_torch.train import schedule
 from cl4wsis_tpu_torch.train.phase1 import (make_phase1_train_step,
                                             phase1_group_fn)
@@ -77,7 +83,8 @@ class Trainer:
                   crop_size=cfg.crop_size, branch=cfg.branch,
                   norm_act=cfg.norm_act, remat=cfg.remat,
                   backbone_structure=(1, 1, 1, 1) if tiny else None)
-        # fresh weights from the seed, leaving torch's global stream alone
+        # fresh weights from the seed in torch's families, leaving torch's
+        # global stream alone
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed)
             self.model = make_model(self.classes,
@@ -102,17 +109,25 @@ class Trainer:
                     self.tot_classes - 1, self.old_classes - 1,
                     alpha=cfg.pam_alpha)
 
+        fresh = [m for m in (self.model, self.model_old, self.pseudolabeler,
+                             self.peakgenerator) if m is not None]
+        self.device, _, _ = prepare(fresh, dist.local_device(cfg.device),
+                                    cfg.dtype)
+        if not cfg.torch_init:
+            # the JAX CLI's default start: every fresh layer in flax's
+            # families, drawn on the device from a generator of its own
+            gen = torch.Generator(self.device).manual_seed(cfg.seed)
+            for m in fresh:
+                flax_family_init(m, gen)
+
+        # the pretrained body, then (cli.main) the previous step's weights,
+        # overwrite the draws as in the JAX trainer
         if cfg.pretrained and not cfg.synthetic:
             pre = load_torch_pretrained(os.path.join(
                 cfg.pretrained_path, pretrained_name(cfg.backbone)))
             if pre is not None:
                 self.model.load_state_dict(
                     tree_merge(self.model.state_dict(), pre))
-
-        self.device, _, _ = prepare(
-            [m for m in (self.model, self.model_old, self.pseudolabeler,
-                         self.peakgenerator) if m is not None],
-            dist.local_device(cfg.device), cfg.dtype)
         self._build_optimizer()
         self._train_steps: Dict[Any, Any] = {}
         self.step_timer: Optional[StepTimer] = None

@@ -13,8 +13,9 @@ runner): the same fixture, the same stage flags, the same JSON keys.
 
 ``--epochs`` is step 0's; phase 1 and phase 2 run ``--cl_epochs`` epochs
 (default: the same). ``--seeds`` runs the protocol once for each seed
-under ``<root>/s<seed>``. The port always starts from torch's init
-families, so ``--torch_init`` changes nothing. ``--tiny`` cuts the model
+under ``<root>/s<seed>``. ``--torch_init`` starts the fresh layers in
+torch's init families, as the protocol does, and without it they start in
+flax's, as in the JAX runner. ``--tiny`` cuts the model
 to a ResNet-18 of one block a stage and loads in this process.
 ``--no_tf32`` turns TensorFloat-32 off in cuDNN's convolutions (PyTorch
 allows it there by default) and in matmuls; each record says which. The
@@ -183,7 +184,7 @@ def get_parser():
     ap.add_argument("--seeds", type=int, nargs="+", default=None,
                     help="run the protocol for each seed, under root/s<seed>")
     ap.add_argument("--torch_init", action="store_true",
-                    help="accepted; the port always draws torch's init")
+                    help="fresh layers in torch's init families, not flax's")
     ap.add_argument("--images", type=int, default=16)
     ap.add_argument("--wrap", action="store_true")
     ap.add_argument("--paint", action="store_true",

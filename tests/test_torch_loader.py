@@ -71,7 +71,7 @@ def test_loader_matches_jax_over_epochs(datasets, workers):
     assert not torch.equal(seen[0][0]["image"], seen[1][0]["image"])
     if workers:
         ctx = port._loader.multiprocessing_context
-        assert ctx.get_start_method() == "spawn"
+        assert ctx.get_start_method() == "forkserver"
         assert port._loader.persistent_workers
     assert len(_children() - before) == workers
     port.close()                  # the workers stop; a later epoch restarts

@@ -28,9 +28,10 @@ from torch_one_thread import one_torch_thread  # noqa: F401
 
 SIZE, BS, TINY = 64, 2, (1, 1, 1, 1)
 CLASSES = (3,)             # background + 2 thing classes
-# Every BN layer trains on batch statistics (E[x^2] - mean^2 in float32,
-# as JAX takes them), and the ASPP head's pooled branch normalises over
-# the batch's 2 pooled values: the step is ill-conditioned in float32.
+# Every BN layer trains on batch statistics (E[x^2] - mean^2 in float32
+# in JAX, the fused norm in the port), and the ASPP head's pooled branch
+# normalises over the batch's 2 pooled values: the step is
+# ill-conditioned in float32.
 # So the step's update is held per parameter tensor, relative to JAX's
 # (update_readings), at phase 2's learning rate: at it the JAX and port
 # updates differ by at most 0.054 of JAX's (head.global_pooling_conv),

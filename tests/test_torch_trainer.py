@@ -481,9 +481,14 @@ def test_phase2_epoch_moves_only_the_instance_branch(step0_ckpt, run_refine):
     """After a phase-2 epoch (from step 0's weights), with and without the
     self-refinement: body and seg, their BN statistics included,
     bit-unchanged; every instance parameter tensor with a gradient moved;
-    the old model bit-unchanged."""
+    the old model bit-unchanged. The new rows start in torch's families
+    (--torch_init true): their biases are not 0, so that weight decay
+    moves them where two synthetic batches give the new classes no
+    pseudo-label, and so no gradient (from flax's zero biases nothing
+    would)."""
     t = _trainer(["--step", "1", "--weakly", "--phase", "2", "--optim",
-                  "adam", "--lr", "5e-5", "--run_refine", run_refine])
+                  "adam", "--lr", "5e-5", "--run_refine", run_refine,
+                  "--torch_init", "true"])
     t.load_step_ckpt(step0_ckpt)
     before = {k: v.clone() for k, v in t.model.state_dict().items()}
     old_before = {k: v.clone() for k, v in t.model_old.state_dict().items()}
