@@ -145,7 +145,24 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      launches counted; the CLI chain at 2 ranks with --tiny, and --test
      of the same lifted checkpoint, whose merged validation must equal
      world 1's;
- 17. print the kernels line (JSON) and, last, the ok line (JSON).
+ 17. realdata_kit, in the fixture's process after its protocol: the
+     port's real-data parity kit (scripts/run_realdata_parity_torch.py)
+     on the painted mini-VOC of phase 10 in the real-data layout, with a
+     seeded random-weight ResNet-101 iABN ImageNet file in upstream's
+     layout ('module.' keys, classifier.fc, negative BN weights, a numpy
+     float64 best_prec1 and the epoch beside state_dict): --run check
+     exits 0 with every row the port reads OK and the body covered, and
+     1 for a copy without one body key and for the file under a wrong
+     name; --run port --epochs_scale 0.01 runs its three CLI stages (1
+     epoch each at the recipe's full width: ResNet-101, OS16, batch 16,
+     512^2, 4 loader workers, the pretrained body, phase 2's factory
+     through the kernels) as processes of its own, each rc 0, each
+     stage's mAP read from its output equal to its JSONL record to 4
+     decimals, RB_0 and RB_1 where the next stage reads them. Then, in
+     this process, the step-0 Trainer of the kit's own step-0 argv on
+     the card: every body tensor equal to the file's converted tensors,
+     bit for bit, before any step. The `realdata_kit` JSON line;
+ 18. print the kernels line (JSON) and, last, the ok line (JSON).
 Without a CUDA device it exits non-zero before printing any result. The
 dist and fixture phases run this file again as their worker processes,
 with arguments.
@@ -161,6 +178,7 @@ import gc
 import inspect
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -171,9 +189,10 @@ import numpy as np
 import torch
 
 from cl4wsis_tpu_torch.cl import tasks
-from cl4wsis_tpu_torch.cl.ckpt import load_checkpoint
+from cl4wsis_tpu_torch.cl.ckpt import load_checkpoint, load_torch_pretrained
 from cl4wsis_tpu_torch.cli import main as cli
 from cl4wsis_tpu_torch.core import abn
+from cl4wsis_tpu_torch.data.fixture import write_fake_iabn
 from cl4wsis_tpu_torch.data.synthetic import synthetic_batches
 from cl4wsis_tpu_torch.models import make_model
 from cl4wsis_tpu_torch.models.flax_init import TRUNC_STD, fan_in
@@ -185,6 +204,7 @@ from cl4wsis_tpu_torch.serve import Predictor
 from cl4wsis_tpu_torch.train import phase1, phase2, schedule, step0
 from cl4wsis_tpu_torch.train.eval import validate_instances, validate_semseg
 from cl4wsis_tpu_torch.train.state import TrainState
+from cl4wsis_tpu_torch.train.trainer import pretrained_name
 from cl4wsis_tpu_torch.utils import device_time
 from cl4wsis_tpu_torch.utils.visualize import sample_image
 from cl4wsis_tpu_torch.wss import PeakGenerator, PseudoLabeler
@@ -3150,6 +3170,33 @@ def fixture_worker(out_path, *args):
         json.dump({"launches": launches, "line": line}, f)
 
 
+def kit_worker():
+    """Phase 17 alone on the card, in a temporary directory, then the
+    step-0 body check of the main process:
+
+        python3 chip_smoke.py kit
+    """
+    kernels.lib()
+    with tempfile.TemporaryDirectory() as root:
+        line = realdata_kit(os.path.join(root, "kit"))
+        line["body_tensors_equal_on_card"] = kit_body_on_card(line)
+    log(json.dumps({"realdata_kit": line}))
+
+
+def beside_worker(out_path):
+    """The process fixture_process starts: phase 15, then phase 17 under
+    the directory of `out_path` at a lower CPU priority; both results
+    saved to `out_path`."""
+    kernels.lib()
+    launches, line = fixture_accuracy()
+    # the kit overlaps the main process's last phases, which bind the
+    # host: its processes (this one's children) yield the cores to them
+    os.nice(10)
+    kit_line = realdata_kit(os.path.join(os.path.dirname(out_path), "kit"))
+    with open(out_path, "w") as f:
+        json.dump({"launches": launches, "line": line, "kit": kit_line}, f)
+
+
 @contextlib.contextmanager
 def fixture_process(root):
     """Phase 15 runs in a process of its own beside the other phases, from
@@ -3163,7 +3210,7 @@ def fixture_process(root):
     log_path = os.path.join(root, "fixture.log")
     with open(log_path, "w") as out:
         p = subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                              "fixture", out_path], stdout=out,
+                              "beside", out_path], stdout=out,
                              stderr=subprocess.STDOUT, start_new_session=True)
     t = time.perf_counter()
 
@@ -3180,7 +3227,7 @@ def fixture_process(root):
             raise AssertionError(f"the fixture process failed ({rc})")
         with open(out_path) as f:
             got = json.load(f)
-        return got["launches"], got["line"]
+        return got["launches"], got["line"], got["kit"]
     try:
         yield result
     finally:
@@ -3213,6 +3260,208 @@ def synthetic_example():
         f"launches {launches}")
     return launches, {"steps": EXAMPLE_STEPS, "map50": res["map50"],
                       "map": res["map"], "wall_s": round(wall, 1)}
+
+
+# ---------------------------------------------------------- real-data kit
+
+KIT_SCRIPT = "scripts/run_realdata_parity_torch.py"
+KIT_TASK = "15-5"
+KIT_SEED = 7                                # the ImageNet file's draw
+KIT_DROPPED = "mod4.block23.convs.conv2.weight"   # the copy without a key
+KIT_CHECK_TIMEOUT_S = 180
+# the kit stops a stage (its whole session) at its own timeout; three of
+# them end inside the --run port process's, so no stage outlives the kit
+KIT_STAGE_TIMEOUT_S = 180
+KIT_TIMEOUT_S = 3 * KIT_STAGE_TIMEOUT_S + 60
+
+
+def kit_argv(root, pretrained="pretrained"):
+    """The kit's flags for the mini-VOC and the ImageNet files under
+    `root`; everything else at the kit's defaults (the recipe's seed 42,
+    4 loader workers)."""
+    return ["--task", KIT_TASK, "--data_root", os.path.join(root, "data"),
+            "--pretrained_dir", os.path.join(root, pretrained),
+            "--workdir", os.path.join(root, "work"),
+            "--out", os.path.join(root, "kit.json"),
+            "--timeout", str(KIT_STAGE_TIMEOUT_S)]
+
+
+def kit_rows(out):
+    """The readiness rows the kit printed, as (status, needed by), and the
+    coverage of its ImageNet file where it opened one."""
+    rows, cov = [], None
+    for ln in out.splitlines():
+        m = re.fullmatch(r"  \[(\w+)\] .* \((\w+)\)", ln)
+        if m:
+            rows.append((m.group(1), m.group(2)))
+        elif "coverage of the" in ln:
+            cov = json.loads(ln.split("body: ", 1)[1])
+    return rows, cov
+
+
+def realdata_kit(root):
+    """Phase 17 under `root`: the kit's three readiness checks, run at
+    once, then its --run port at --epochs_scale 0.01, each the kit's own
+    process, its CLI stages processes of their own with wandb kept out of
+    them (as the fixture protocol keeps it out), so that they write only
+    under `root`. Returns the `realdata_kit` line's object."""
+    t_phase = time.perf_counter()
+    kit = load_script(KIT_SCRIPT, "realdata_kit")
+    run_argv = kit_argv(root) + ["--run", "port", "--epochs_scale", "0.01"]
+    a = kit.get_parser().parse_args(run_argv)
+    write_mini_voc(a.data_root)
+    cfg = kit.step0_config(a)
+    shapes = kit.body_shapes(cfg)
+    good = kit.requirements(KIT_TASK, a.data_root, a.pretrained_dir,
+                            cfg.backbone)[-1][1]
+    write_fake_iabn(good, shapes, seed=KIT_SEED)
+    blob = torch.load(good, weights_only=False)
+    del blob["state_dict"]["module." + KIT_DROPPED]
+    missing = os.path.join(root, "pretrained_missing",
+                           os.path.basename(good))
+    os.makedirs(os.path.dirname(missing))
+    torch.save(blob, missing)
+    del blob
+    os.makedirs(os.path.join(root, "pretrained_misnamed"))
+    os.link(good, os.path.join(root, "pretrained_misnamed",
+                               "resnet101_iabn.pth.tar"))
+    no_wandb = os.path.join(root, "no_wandb")
+    os.makedirs(no_wandb)
+    with open(os.path.join(no_wandb, "wandb.py"), "w") as f:
+        f.write('raise ImportError("wandb is kept out of these runs")\n')
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [
+        no_wandb, REPO, os.environ.get("PYTHONPATH")])))
+    log(f"kit: mini-VOC ({N_TRAIN} + {N_VAL} images) and the ImageNet file "
+        f"({len(shapes)} body tensors, "
+        f"{os.path.getsize(good) / 2**20:.1f} MiB) written in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    t = time.perf_counter()
+    procs = {what: subprocess.Popen(
+        [sys.executable, os.path.join(REPO, KIT_SCRIPT),
+         *kit_argv(root, pre)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env, cwd=REPO)
+        for what, pre in (("ready", "pretrained"),
+                          ("missing_key", "pretrained_missing"),
+                          ("misnamed", "pretrained_misnamed"))}
+    try:
+        outs = {w: p.communicate(timeout=KIT_CHECK_TIMEOUT_S)[0]
+                for w, p in procs.items()}
+    finally:
+        for p in procs.values():
+            p.kill()
+    checks = {}
+    for what, p in procs.items():
+        rows, cov = kit_rows(outs[what])
+        checks[what] = {"rc": p.returncode, "image_net": rows[-1][0],
+                        "rows_ok": sum(r == ("OK", "both") for r in rows),
+                        "coverage": cov}
+    want_rows = sum(r[2] == "both" for r in kit.requirements(
+        KIT_TASK, a.data_root, a.pretrained_dir))
+    ready, miss, named = (checks[w] for w in ("ready", "missing_key",
+                                               "misnamed"))
+    cov = ready["coverage"] or {}
+    if not (ready["rc"] == 0 and ready["rows_ok"] == want_rows and
+            cov.get("covered") == cov.get("body") == len(shapes) and
+            cov.get("n_missing") == cov.get("n_wrong_shape") == 0 and
+            miss["rc"] == 1 and miss["image_net"] == "MISMATCH" and
+            (miss["coverage"] or {}).get("missing") == ["body." + KIT_DROPPED]
+            and named["rc"] == 1 and named["image_net"] == "MISSING"):
+        raise AssertionError(f"kit readiness checks: {checks}\n" +
+                             "\n".join(outs.values()))
+    check_s = time.perf_counter() - t
+    log(f"kit readiness (3 checks at once, {check_s:.1f} s): ready rc 0, "
+        f"{ready['rows_ok']} rows the port reads OK, coverage "
+        f"{json.dumps({k: v for k, v in cov.items() if k.startswith(('covered', 'body', 'n_'))})}"
+        f"; without {KIT_DROPPED}: rc {miss['rc']}, MISMATCH; under a wrong "
+        f"name: rc {named['rc']}, MISSING")
+
+    t = time.perf_counter()
+    p = subprocess.run([sys.executable, os.path.join(REPO, KIT_SCRIPT),
+                        *run_argv], capture_output=True, text=True, env=env,
+                       cwd=REPO, timeout=KIT_TIMEOUT_S)
+    run_s = time.perf_counter() - t
+    with open(a.out) as f:
+        res = json.load(f)
+    stages, logged = res["port"], res["port_logged"]
+    cmds = kit.port_cmds(a)
+    hand_off = [cmds[1][cmds[1].index("--step_ckpt") + 1],
+                cmds[2][cmds[2].index("--seg_ckpt") + 1]]
+    bad = [] if p.returncode == 0 and len(stages) == len(logged) == 3 \
+        else ["rc or stage count"]
+    for st, lg in zip(stages, logged):
+        fin = lg["final"] or {}
+        if st["rc"] != 0:
+            bad.append(f"stage {st['stage']} rc {st['rc']}")
+        elif lg["phase"] == 1:
+            if st["map50"] is not None or "Mean IoU" not in fin:
+                bad.append(f"stage {st['stage']}: {st}, {fin}")
+        elif not ("map50" in fin and
+                  st["map50"] == float(f"{fin['map50']:.4f}") and
+                  st["map"] == float(f"{fin['map']:.4f}")):
+            bad.append(f"stage {st['stage']}: parsed {st}, JSONL {fin}")
+    bad += [f"no {path}" for path in hand_off if not os.path.exists(path)]
+    if bad:
+        tails = [st.get("tail", "") for st in stages]
+        raise AssertionError(f"kit --run port: {bad}\n{p.stdout[-3000:]}\n"
+                             f"{p.stderr[-3000:]}\n" + "\n".join(tails))
+    for st, lg in zip(stages, logged):
+        fin = lg["final"]
+        with open(os.path.join(a.workdir, f"rb_stage{st['stage']}.log")) as f:
+            said = [ln.rstrip() for ln in f
+                    if ln.startswith(("[epoch", "[test]", "[ckpt]"))]
+        log(f"kit stage {st['stage']} (step {lg['step']}, phase "
+            f"{lg['phase']}): rc 0 in {st['wall_s']} s, map50 {st['map50']}"
+            f", map {st['map']} (JSONL {fin.get('map50')}, "
+            f"{fin.get('map')}; mIoU {fin.get('Mean IoU')}); it said "
+            f"{said}")
+    log(f"kit --run port: {run_s:.1f} s; {hand_off[0]} and {hand_off[1]} "
+        f"written where the next stage reads them")
+    return {"task": KIT_TASK, "epochs_scale": 0.01,
+            "checks": checks, "check_s": round(check_s, 1),
+            "stages": [{"stage": st["stage"], "step": lg["step"],
+                        "phase": lg["phase"], "rc": st["rc"],
+                        "wall_s": st["wall_s"], "map": st["map"],
+                        "map50": st["map50"],
+                        "jsonl_map50": lg["final"].get("map50"),
+                        "jsonl_miou": lg["final"].get("Mean IoU")}
+                       for st, lg in zip(stages, logged)],
+            "run_s": round(run_s, 1), "step0_argv": cmds[0],
+            "wall_s": round(time.perf_counter() - t_phase, 1),
+            "card": card_line()}
+
+
+def kit_body_on_card(kit_line):
+    """The step-0 Trainer of the kit's own step-0 argv (the card, the
+    default device) before any step: every body tensor equal, bit for
+    bit, to what the port's loader converts from the ImageNet file.
+    Returns the count of tensors held."""
+    argv = kit_line["step0_argv"]
+    cfg = cli.parse_config(argv[argv.index("cl4wsis_tpu_torch.cli.main")
+                                + 1:])
+    t = time.perf_counter()
+    trainer = cli.Trainer(cfg, iters_per_epoch=N_TRAIN // B)
+    path = os.path.join(trainer.cfg.pretrained_path,
+                        pretrained_name(trainer.cfg.backbone))
+    want = load_torch_pretrained(path)
+    body = {k: v for k, v in trainer.model.state_dict().items()
+            if k.startswith("body.")}
+    raw = torch.load(path, weights_only=False)["state_dict"]
+    unequal = [k for k in want if not torch.equal(body[k].cpu(), want[k])]
+    if trainer.device.type != "cuda" or body.keys() != want.keys() or \
+            unequal or not (raw["module.mod1.bn1.weight"] < 0).any():
+        raise AssertionError(f"the kit's step-0 body on the card: device "
+                             f"{trainer.device}, {len(body)} body tensors "
+                             f"against {len(want)} in the file, unequal "
+                             f"{unequal[:5]}")
+    log(f"kit: the step-0 Trainer of the kit's own argv on "
+        f"{trainer.device} ({time.perf_counter() - t:.1f} s): its "
+        f"{len(body)} body tensors equal the file's converted tensors bit "
+        f"for bit before any step (BN weights as |weight|)")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return len(body)
 
 
 # ------------------------------------------------------------- dist phase
@@ -3521,7 +3770,8 @@ def dist_rank(spec_path, out_prefix):
 
 
 WORKERS = {"dist-world1": dist_world1, "dist-rank": dist_rank,
-           "fixture": fixture_worker}
+           "fixture": fixture_worker, "beside": beside_worker,
+           "kit": kit_worker}
 
 
 def first_update_readings(one, other):
@@ -3827,10 +4077,12 @@ def phases(dev, rs, res, check_launches, fixture_result, t_phases) -> int:
     dist_launches = dist_phase(chain_seen, rs)
     log(f"dist phase: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    fixture_launches, fixture_line = fixture_result()
+    fixture_launches, fixture_line, kit_line = fixture_result()
     fixture_launches["example"] = example_launches
     log(f"fixture-accuracy phase: waited {time.perf_counter() - t:.1f} s for "
-        f"its process, which ran {fixture_line['wall_s']} s")
+        f"its process, which ran {fixture_line['wall_s']} s and the kit "
+        f"phase {kit_line['wall_s']} s")
+    kit_line["body_tensors_equal_on_card"] = kit_body_on_card(kit_line)
     log(f"all phases passed in {time.perf_counter() - t_phases:.1f} s after "
         f"the kernel build")
 
@@ -3900,6 +4152,7 @@ def phases(dev, rs, res, check_launches, fixture_result, t_phases) -> int:
                      "coco_voc": r.get("coco_voc"),
                      "one_new_class": ms_rows.get(name)})
     log(json.dumps({"fixture": fixture_line | {"example": example}}))
+    log(json.dumps({"realdata_kit": kit_line}))
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

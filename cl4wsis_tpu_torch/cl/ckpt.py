@@ -161,10 +161,13 @@ def convert_torch_resnet(state_dict: Dict[str, Any],
 
 
 def load_torch_pretrained(path: str) -> Optional[Dict[str, torch.Tensor]]:
-    """An iABN ImageNet checkpoint as ``body.*`` weights, if present."""
+    """An iABN ImageNet checkpoint as ``body.*`` weights, if present. The
+    file is read as the JAX package reads it, as a full pickle: upstream's
+    training scripts save numpy scalars, ``argparse.Namespace`` or other
+    objects beside ``state_dict``, which ``weights_only=True`` refuses."""
     if not os.path.exists(path):
         return None
-    blob = torch.load(path, map_location="cpu", weights_only=True)
+    blob = torch.load(path, map_location="cpu", weights_only=False)
     return convert_torch_resnet(blob.get("state_dict", blob))
 
 

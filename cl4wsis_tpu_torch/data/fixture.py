@@ -9,6 +9,12 @@ writes ``root/voc/JPEGImages/img_NNN.jpg`` and
 ``root/voc/pascal_sbd_{train,val}.json`` (both splits hold every image),
 the layout ``data/voc.make_voc_datasets`` reads under ``--data_root root``.
 ``scripts/run_rebuild_fixture_torch.py`` and ``chip_smoke.py`` train on it.
+
+    write_fake_iabn(path, shapes, seed=0)
+
+writes a random-weight iABN ImageNet checkpoint in upstream's layout for a
+body of the given ``body.*`` key shapes (the real-data kit's readiness
+check and its rehearsals read it).
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import json
 import os
 
 import numpy as np
+import torch
 from PIL import Image
 
 
@@ -85,3 +92,30 @@ def write_fake_voc(root, n_images=6, size=48, rich=False, wrap=False,
         with open(os.path.join(root, "voc", f"pascal_sbd_{split}.json"),
                   "w") as f:
             json.dump(body, f)
+
+
+def write_fake_iabn(path, shapes, seed=0):
+    """A random-weight iABN ImageNet checkpoint at `path`, laid out as
+    upstream's pickles are: every key of `shapes` (``body.*`` -> shape)
+    under ``module.`` instead of ``body.``, BN weights of either sign (the
+    ingest takes |weight|), running variances in [0.5, 1.5), a 1000-way
+    ``classifier.fc`` and, beside ``state_dict``, ``epoch`` and
+    ``best_prec1`` as a numpy float64, from ``RandomState(seed)``."""
+    rs = np.random.RandomState(seed)
+    sd = {}
+    for key, shape in shapes.items():
+        if key.endswith("running_var"):
+            val = rs.uniform(0.5, 1.5, shape)
+        elif len(shape) == 4:      # conv kernels at He scale
+            val = rs.randn(*shape) * np.sqrt(2.0 / np.prod(shape[1:]))
+        else:
+            val = rs.randn(*shape)
+        sd["module." + key[len("body."):]] = torch.from_numpy(
+            val.astype(np.float32))
+    width = max(s[0] for k, s in shapes.items() if k.endswith("weight"))
+    sd["module.classifier.fc.weight"] = torch.from_numpy(
+        (rs.randn(1000, width) * 0.01).astype(np.float32))
+    sd["module.classifier.fc.bias"] = torch.zeros(1000)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save({"epoch": 90, "best_prec1": np.float64(77.1),
+                "state_dict": sd}, path)

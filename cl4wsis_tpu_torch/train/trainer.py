@@ -63,6 +63,17 @@ def pretrained_name(backbone: str) -> str:
     return f"{backbone}_iabn_sync.pth.tar"
 
 
+def model_kwargs(cfg) -> Dict[str, Any]:
+    """`make_model`'s arguments for the finalized config `cfg`. --tiny cuts
+    a ResNet to one block a stage; WideResNet-38 stays whole, as the JAX
+    model ignores the structure for it."""
+    tiny = cfg.tiny and "wide" not in cfg.backbone
+    return dict(backbone=cfg.backbone, output_stride=cfg.output_stride,
+                crop_size=cfg.crop_size, branch=cfg.branch,
+                norm_act=cfg.norm_act, remat=cfg.remat,
+                backbone_structure=(1, 1, 1, 1) if tiny else None)
+
+
 class Trainer:
     def __init__(self, cfg, iters_per_epoch: int):
         self.cfg = cfg = cfg.finalize(iters_per_epoch)
@@ -76,13 +87,7 @@ class Trainer:
         # supervised (step-0) step, without the pseudo-label machinery
         self.supervised_pseudo = self.weakly and cfg.pseudo is not None
 
-        # --tiny cuts a ResNet to one block a stage; WideResNet-38 stays
-        # whole, as the JAX model ignores the structure for it
-        tiny = cfg.tiny and "wide" not in cfg.backbone
-        mk = dict(backbone=cfg.backbone, output_stride=cfg.output_stride,
-                  crop_size=cfg.crop_size, branch=cfg.branch,
-                  norm_act=cfg.norm_act, remat=cfg.remat,
-                  backbone_structure=(1, 1, 1, 1) if tiny else None)
+        mk = model_kwargs(cfg)
         # fresh weights from the seed in torch's families, leaving torch's
         # global stream alone
         with torch.random.fork_rng(devices=[]):

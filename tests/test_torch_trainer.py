@@ -5,6 +5,7 @@ interval means, the per-phase learning-rate groups, loads that keep the
 optimizer's parameters, and what a phase-2 epoch may move. Checkpoint
 arithmetic is held exactly."""
 
+import argparse
 import dataclasses
 import os
 import shutil
@@ -247,6 +248,43 @@ def test_iabn_ingest_matches_jax(tmp_path):
     model = trainer_mod.make_model((16,), backbone_structure=TINY)
     body = model.state_dict()
     assert all(body[k].shape == v.shape for k, v in got.items())
+
+
+# what upstream's training scripts save beside the weights
+PRETRAINED_EXTRAS = {
+    "plain": {},
+    "np_float64": {"epoch": 90, "best_prec1": np.float64(77.37)},
+    "namespace": {"args": argparse.Namespace(arch="resnet101", lr=0.1)},
+}
+
+
+@pytest.mark.parametrize("extra", PRETRAINED_EXTRAS.values(),
+                         ids=PRETRAINED_EXTRAS.keys())
+def test_pretrained_file_with_extras_loads_as_in_jax(tmp_path, extra):
+    """The port's load_torch_pretrained reads every file JAX's reads (a
+    full pickle, not weights_only): with a numpy float64 or an
+    argparse.Namespace beside the state dict too, key for key and value
+    for value JAX's tree carried over by convert_jax_variables, and the
+    trainer's body starts from it."""
+    sd = _fake_iabn_state_dict(np.random.RandomState(4))
+    pre = tmp_path / "pretrained"
+    pre.mkdir()
+    path = pre / "resnet101_iabn_sync.pth.tar"
+    torch.save({"state_dict": sd, **extra}, path)
+    got = ckpt.load_torch_pretrained(str(path))
+    j = jckpt.load_torch_pretrained(str(path))
+    want = ckpt.convert_jax_variables(jax.tree_util.tree_map(
+        np.asarray, {"params": {"body": j["params"]},
+                     "batch_stats": {"body": j["batch_stats"]}}))
+    assert got.keys() == want.keys() and len(got) == 20
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    cfg = config.parse_config([
+        "--dataset", "voc", "--task", "15-5", "--step", "0", "--pretrained",
+        "true", "--pretrained_path", str(pre), "--tiny", "true",
+        "--crop_size", "48", "--device", "cpu", "--dtype", "float32"])
+    body = Trainer(cfg, iters_per_epoch=1).model.state_dict()
+    assert all(torch.equal(body[k], v) for k, v in got.items())
 
 
 def _upstream_wide_state_dict(rs):
