@@ -3886,7 +3886,8 @@ def dist_phase(chain_seen, rs):
         for run in ("step 0", "phase 1", "phase 2"):
             got, want = a[run]["epochs"][0], chain_seen[run]["epoch"]
             err = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-12)
-                      for k in want if k.startswith("l"))
+                      for k in want
+                      if k.startswith("l") and k != "loader_wait_s")
             med = float(np.median(a[run]["steps_ms"][1:]))
             ref = float(np.median(chain_seen[run]["steps_ms"][1:]))
             log(f"world-1 {run}: loss {got['loss']:.6f} against the chain "

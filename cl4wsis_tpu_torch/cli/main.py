@@ -282,15 +282,16 @@ def _run(cfg: Config, on_trainer: Optional[Callable[[Trainer], None]]
                 raise FloatingPointError(f"loss diverged: {metrics}")
             logger.info(f"[epoch {epoch}] loss={loss:.4f} "
                         f"({metrics['n_batches']} it, "
-                        f"{metrics['epoch_time_s']:.1f}s)")
+                        f"{metrics['epoch_time_s']:.1f}s, loader wait "
+                        f"{metrics['loader_wait_s']:.1f}s)")
             if cfg.phase == 2:
                 logger.info(f"[epoch {epoch}] pseudo_weight_px="
                             f"{metrics['pseudo_weight_px']:.1f} "
                             f"label_truncated="
                             f"{metrics['label_truncated']:.2f}")
             for k, v in metrics.items():
-                logger.add_scalar(f"Loss/{k}" if k.startswith("l") else k,
-                                  v, epoch)
+                logger.add_scalar(f"Loss/{k}" if k.startswith("l") and
+                                  k != "loader_wait_s" else k, v, epoch)
             logger.commit()
             if (epoch + 1) % cfg.ckpt_interval == 0 or \
                     epoch == cfg.epochs - 1:

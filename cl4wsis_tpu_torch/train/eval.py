@@ -7,7 +7,11 @@ background before instance extraction, and the slot-id map is cropped back.
 The JAX package pads so that one compiled program serves a bucket; the port
 keeps the same padding so that both give the same answers. The per-image
 post-processing runs on the device and only the slot arrays cross to the
-host; matching and AP run in numpy (``metrics/voc_ap.py``).
+host; matching and AP run in numpy (``metrics/voc_ap.py``). Under a
+running profiler the forward's launches fall in two stage spans
+(``utils/logging.span``): ``eval.forward`` (the bucket's pad, the input's
+transfer and the model) and ``eval.postproc`` (resizes, softmax, the flip
+average, the pad mask and ``get_ins_map``).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from cl4wsis_tpu_torch.metrics.stream import StreamSegMetrics
 from cl4wsis_tpu_torch.metrics.voc_ap import InstanceAPAccumulator, ins_map_iou
 from cl4wsis_tpu_torch.ops.instance_postproc import get_ins_map
 from cl4wsis_tpu_torch.ops.resize import resize_bilinear
+from cl4wsis_tpu_torch.utils.logging import span
 
 
 def pick_bucket(m: int, multiple: int) -> int:
@@ -56,36 +61,44 @@ def make_eval_forward(model: torch.nn.Module, num_classes: int, *,
     ``bucket_multiple=None`` takes the exact per-size path."""
     device = torch.device(device)
 
-    def _apply(image: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = image.permute(0, 3, 1, 2).to(device)
-        if val_flip:
-            x = torch.cat([x, torch.flip(x, dims=[3])])
-        if device.type == "cuda":
-            x = x.contiguous(memory_format=torch.channels_last)
-        with torch.autocast(device.type, dtype=torch.bfloat16,
-                            enabled=dtype == torch.bfloat16):
-            return model(x, interpolate=False)
+    def _apply(image: torch.Tensor, bucket: Optional[int] = None
+               ) -> Dict[str, torch.Tensor]:
+        with span("eval.forward"):
+            if bucket is not None:      # zero-padded to the square bucket
+                h, w = image.shape[1:3]
+                padded = image.new_zeros((1, bucket, bucket, image.shape[3]))
+                padded[:, :h, :w] = image
+                image = padded
+            x = image.permute(0, 3, 1, 2).to(device)
+            if val_flip:
+                x = torch.cat([x, torch.flip(x, dims=[3])])
+            if device.type == "cuda":
+                x = x.contiguous(memory_format=torch.channels_last)
+            with torch.autocast(device.type, dtype=torch.bfloat16,
+                                enabled=dtype == torch.bfloat16):
+                return model(x, interpolate=False)
 
     def _postproc(pred, out_hw, valid_hw):
-        pred = {k: resize_bilinear(v, out_hw, align_corners=False)
-                for k, v in pred.items()}
-        seg_prob = torch.softmax(pred["seg"].float(), dim=1)
-        center = pred["center"].float()
-        if val_flip:    # (C, H, W): the flip undone along W
-            seg_prob = (seg_prob[0] + torch.flip(seg_prob[1], dims=[2])) / 2.0
-            center = (center[0] + torch.flip(center[1], dims=[2])) / 2.0
-        else:
-            seg_prob, center = seg_prob[0], center[0]
-        seg_prob, center, offset = (
-            t.float().permute(1, 2, 0).contiguous()
-            for t in (seg_prob, center, pred["offset"][0]))
-        if valid_hw is not None:
-            seg_prob, center, offset = mask_pad_region(seg_prob, center,
-                                                       offset, valid_hw)
-        return get_ins_map(seg_prob, center, offset, num_classes=num_classes,
-                           val_thresh=val_thresh, val_kernel=val_kernel,
-                           beta=beta, max_ctr=max_ctr,
-                           max_cluster=max_cluster)
+        with span("eval.postproc"):
+            pred = {k: resize_bilinear(v, out_hw, align_corners=False)
+                    for k, v in pred.items()}
+            seg_prob = torch.softmax(pred["seg"].float(), dim=1)
+            center = pred["center"].float()
+            if val_flip:    # (C, H, W): the flip undone along W
+                seg_prob = (seg_prob[0] + torch.flip(seg_prob[1], dims=[2])) / 2.0
+                center = (center[0] + torch.flip(center[1], dims=[2])) / 2.0
+            else:
+                seg_prob, center = seg_prob[0], center[0]
+            seg_prob, center, offset = (
+                t.float().permute(1, 2, 0).contiguous()
+                for t in (seg_prob, center, pred["offset"][0]))
+            if valid_hw is not None:
+                seg_prob, center, offset = mask_pad_region(seg_prob, center,
+                                                           offset, valid_hw)
+            return get_ins_map(seg_prob, center, offset, num_classes=num_classes,
+                               val_thresh=val_thresh, val_kernel=val_kernel,
+                               beta=beta, max_ctr=max_ctr,
+                               max_cluster=max_cluster)
 
     @torch.no_grad()
     def fwd(image: torch.Tensor, target_size: Tuple[int, int]):
@@ -94,9 +107,7 @@ def make_eval_forward(model: torch.nn.Module, num_classes: int, *,
         if bucket_multiple is None or (h, w) != tuple(target_size):
             return _postproc(_apply(image), tuple(target_size), None)
         b = pick_bucket(max(h, w), bucket_multiple)
-        padded = image.new_zeros((1, b, b, image.shape[3]))
-        padded[:, :h, :w] = image
-        out = dict(_postproc(_apply(padded), (b, b), (h, w)))
+        out = dict(_postproc(_apply(image, b), (b, b), (h, w)))
         out["ins_map"] = out["ins_map"][:h, :w]
         return out
 

@@ -22,6 +22,14 @@ is launched once per step: connected components twice (8-connected classes,
 4-connected weak clusters), top-k twice (CAM peaks, NMS centers), run
 totals once and the stamp twice. Nothing in the step waits on the card.
 
+Under a running profiler the step's launches fall in five stage spans
+(``utils/logging.span``): ``phase2.frozen`` (the input's copy and layout,
+the frozen forwards and the CAM), ``phase2.instance_forward`` (the
+instance branch and the resize of its outputs), ``phase2.targets`` (CAM
+peaks, the seg's argmax and the old classes' targets; entered twice),
+``phase2.label_factory`` (the factory and the blend of its targets) and
+``phase2.instance_update`` (losses, backward and the optimizer step).
+
 Over several ranks each rank runs the label factory on its own rows, as
 the JAX step's ``shard_map`` does; the weighted losses count over the
 global batch, and the gradients are summed over ranks (``core/dist``).
@@ -41,6 +49,7 @@ from cl4wsis_tpu_torch.train import losses
 from cl4wsis_tpu_torch.train.losses import (CENTER_LOSS_WEIGHT,
                                              OFFSET_LOSS_WEIGHT)
 from cl4wsis_tpu_torch.train.state import TrainState, prepare
+from cl4wsis_tpu_torch.utils.logging import span
 
 
 def label_factory(seg_gt: torch.Tensor, cls_label: torch.Tensor,
@@ -137,83 +146,96 @@ def make_phase2_train_step(model: torch.nn.Module,
         net.instance_head.train()
         for m in (model_old, pseudolabeler, peakgenerator):
             m.eval()
-        x = batch["image"].to(device).permute(0, 3, 1, 2).contiguous(
-            memory_format=fmt)
-        l1h = batch["l1h"].to(device).float()
-        size = tuple(x.shape[2:])
+        with span("phase2.frozen"):
+            x = batch["image"].to(device).permute(0, 3, 1, 2).contiguous(
+                memory_format=fmt)
+            l1h = batch["l1h"].to(device).float()
+            size = tuple(x.shape[2:])
 
-        # frozen networks: old model, the seg on the image and its flip,
-        # the CAM from the body features
-        with torch.no_grad(), autocast():
-            out_old = model_old(x, interpolate=False)
-            seg_a, feats = net.forward_seg(x, interpolate=False)
-            seg_b, _ = net.forward_seg(torch.flip(x, dims=[3]),
-                                       interpolate=False)
-            _, cam = peakgenerator(pseudolabeler(feats["body"]), label=l1h)
+            # frozen networks: old model, the seg on the image and its
+            # flip, the CAM from the body features
+            with torch.no_grad(), autocast():
+                out_old = model_old(x, interpolate=False)
+                seg_a, feats = net.forward_seg(x, interpolate=False)
+                seg_b, _ = net.forward_seg(torch.flip(x, dims=[3]),
+                                           interpolate=False)
+                _, cam = peakgenerator(pseudolabeler(feats["body"]),
+                                       label=l1h)
 
         # the instance branch on the detached features: the only gradients
-        with autocast():
-            instance = net.forward_instance(feats["features"], generator)
-        center_out = resize_bilinear(instance["center"].float(), size)
-        offset_out = resize_bilinear(instance["offset"].float(), size)
+        with span("phase2.instance_forward"):
+            with autocast():
+                instance = net.forward_instance(feats["features"], generator)
+            center_out = resize_bilinear(instance["center"].float(), size)
+            offset_out = resize_bilinear(instance["offset"].float(), size)
 
         with torch.no_grad():
-            # CAM -> peaks of the new classes, padded back over the old
-            cam_t = resize_bilinear(smoothing(cam.float())[:, old_things:],
-                                    size)
-            peak_conf, peak_ys, peak_xs = peak_extract_nchw(
-                cam_t, kernel=peak_kernel, k=max_peaks)
-            pad = (0, 0, old_things, 0)
-            peak_conf, peak_ys, peak_xs = (
-                F.pad(t, pad) for t in (peak_conf, peak_ys, peak_xs))
+            with span("phase2.targets"):
+                # CAM -> peaks of the new classes, padded back over the old
+                cam_t = resize_bilinear(
+                    smoothing(cam.float())[:, old_things:], size)
+                peak_conf, peak_ys, peak_xs = peak_extract_nchw(
+                    cam_t, kernel=peak_kernel, k=max_peaks)
+                pad = (0, 0, old_things, 0)
+                peak_conf, peak_ys, peak_xs = (
+                    F.pad(t, pad) for t in (peak_conf, peak_ys, peak_xs))
 
-            # the frozen seg's argmax as ground truth
-            seg_max = (seg_a["seg"].float() +
-                       torch.flip(seg_b["seg"].float(), dims=[3])) / 2.0
-            soft = torch.softmax(resize_bilinear(seg_max, size), dim=1)
-            soft[:, old_classes:] *= l1h[:, old_classes - 1:, None, None]
-            seg_gt = torch.argmax(soft, dim=1).to(torch.int32)
-            old_fg = ((seg_gt < old_classes) & (seg_gt != 0))[:, None].float()
-            seg_gt = torch.where(seg_gt < old_classes, 0, seg_gt)
-            cls_label = l1h.clone()
-            cls_label[:, :old_things] = 0.0        # new classes only
-            peak_valid = (peak_conf >= pseudo_thresh) & \
-                (cls_label[:, :, None] > 0)
+                # the frozen seg's argmax as ground truth
+                seg_max = (seg_a["seg"].float() +
+                           torch.flip(seg_b["seg"].float(), dims=[3])) / 2.0
+                soft = torch.softmax(resize_bilinear(seg_max, size), dim=1)
+                soft[:, old_classes:] *= l1h[:, old_classes - 1:, None, None]
+                seg_gt = torch.argmax(soft, dim=1).to(torch.int32)
+                old_fg = ((seg_gt < old_classes) &
+                          (seg_gt != 0))[:, None].float()
+                seg_gt = torch.where(seg_gt < old_classes, 0, seg_gt)
+                cls_label = l1h.clone()
+                cls_label[:, :old_things] = 0.0        # new classes only
+                peak_valid = (peak_conf >= pseudo_thresh) & \
+                    (cls_label[:, :, None] > 0)
 
-            fac = label_factory(seg_gt, cls_label, peak_ys, peak_xs,
-                                peak_valid, soft, center_out.detach(),
-                                offset_out.detach(), **factory_kw)
-            pc, po, pw = fac["pc"], fac["po"], fac["pw"]
-            label_truncated = fac["p_trunc"].sum()
-            if run_refine:
-                refined = fac["refined"]
-                label_truncated = label_truncated + refined["truncated"].sum()
-                pw_sum = torch.maximum(old_fg, pw)
-                pc[:, old_things:] = (pw * pc[:, old_things:] + (1 - pw) *
-                                      refined["center"][:, old_things:])
-                po = pw_sum * po + (1 - pw_sum) * refined["offset"]
-                pw = torch.maximum(pw, refined["weight"])
+            with span("phase2.label_factory"):
+                fac = label_factory(seg_gt, cls_label, peak_ys, peak_xs,
+                                    peak_valid, soft, center_out.detach(),
+                                    offset_out.detach(), **factory_kw)
+                pc, po, pw = fac["pc"], fac["po"], fac["pw"]
+                label_truncated = fac["p_trunc"].sum()
+                if run_refine:
+                    refined = fac["refined"]
+                    label_truncated = (label_truncated +
+                                       refined["truncated"].sum())
+                    pw_sum = torch.maximum(old_fg, pw)
+                    pc[:, old_things:] = (
+                        pw * pc[:, old_things:] +
+                        (1 - pw) * refined["center"][:, old_things:])
+                    po = pw_sum * po + (1 - pw_sum) * refined["offset"]
+                    pw = torch.maximum(pw, refined["weight"])
 
-            out_old_center = resize_bilinear(out_old["center"].float(), size)
-            out_old_offset = resize_bilinear(out_old["offset"].float(), size)
+            with span("phase2.targets"):
+                out_old_center = resize_bilinear(out_old["center"].float(),
+                                                 size)
+                out_old_offset = resize_bilinear(out_old["offset"].float(),
+                                                 size)
 
-        center_loss_1 = 0.5 * losses.weighted_mse(
-            center_out[:, :old_things], out_old_center, old_fg) * \
-            CENTER_LOSS_WEIGHT
-        offset_loss_1 = 0.5 * losses.weighted_l1(
-            offset_out, out_old_offset, old_fg) * OFFSET_LOSS_WEIGHT
-        center_loss_2 = 0.5 * losses.weighted_mse(
-            center_out[:, old_things:], pc[:, old_things:], pw) * \
-            CENTER_LOSS_WEIGHT
-        offset_loss_2 = 0.5 * losses.weighted_l1(offset_out, po, pw) * \
-            OFFSET_LOSS_WEIGHT
-        l_center = center_loss_1 + center_loss_2
-        l_offset = offset_loss_1 + offset_loss_2
-        loss = l_center + l_offset
-        loss.backward()
-        state.apply_gradients()
-        return {"loss": loss.detach(), "l_center": l_center.detach(),
-                "l_offset": l_offset.detach(), "pseudo_weight_px": pw.sum(),
-                "label_truncated": label_truncated.to(torch.int32)}
+        with span("phase2.instance_update"):
+            center_loss_1 = 0.5 * losses.weighted_mse(
+                center_out[:, :old_things], out_old_center, old_fg) * \
+                CENTER_LOSS_WEIGHT
+            offset_loss_1 = 0.5 * losses.weighted_l1(
+                offset_out, out_old_offset, old_fg) * OFFSET_LOSS_WEIGHT
+            center_loss_2 = 0.5 * losses.weighted_mse(
+                center_out[:, old_things:], pc[:, old_things:], pw) * \
+                CENTER_LOSS_WEIGHT
+            offset_loss_2 = 0.5 * losses.weighted_l1(offset_out, po, pw) * \
+                OFFSET_LOSS_WEIGHT
+            l_center = center_loss_1 + center_loss_2
+            l_offset = offset_loss_1 + offset_loss_2
+            loss = l_center + l_offset
+            loss.backward()
+            state.apply_gradients()
+            return {"loss": loss.detach(), "l_center": l_center.detach(),
+                    "l_offset": l_offset.detach(),
+                    "pseudo_weight_px": pw.sum(),
+                    "label_truncated": label_truncated.to(torch.int32)}
 
     return train_step

@@ -31,6 +31,7 @@ the checkpoints and every rank waits for it; every rank reads them.
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
 from collections import deque
@@ -51,7 +52,7 @@ from cl4wsis_tpu_torch.train.phase1 import (make_phase1_train_step,
 from cl4wsis_tpu_torch.train.phase2 import make_phase2_train_step
 from cl4wsis_tpu_torch.train.state import TrainState, prepare
 from cl4wsis_tpu_torch.train.step0 import make_step0_train_step
-from cl4wsis_tpu_torch.utils.logging import StepTimer
+from cl4wsis_tpu_torch.utils.logging import StepTimer, span
 from cl4wsis_tpu_torch.wss import PeakGenerator, PseudoLabeler
 
 
@@ -235,7 +236,8 @@ class Trainer:
         several ranks the sums of the steps' metrics (each rank's shares)
         are summed over ranks at each interval's end and at the epoch's,
         so the means are the global batch's on every rank; only rank 0
-        profiles."""
+        profiles. ``loader_wait_s`` is the host's wait for its next batch
+        over the epoch (this rank's; the ``trainer.next_batch`` span)."""
         cfg = self.cfg
         step_fn = self._get_step(epoch)
         gen = torch.Generator(self.device).manual_seed(cfg.seed + epoch)
@@ -247,7 +249,15 @@ class Trainer:
         if cfg.profile_dir and epoch == 0 and dist.is_main():
             timer = self.step_timer = StepTimer(
                 cfg.profile_dir, device=self.device)
-        for i, batch in enumerate(self._prefetch_device(batches)):
+        loader_wait = 0.0  # the host's wait for the next batch, seconds
+        it = self._prefetch_device(batches)
+        for i in itertools.count():
+            t_wait = time.perf_counter()
+            with span("trainer.next_batch"):
+                batch = next(it, None)
+            loader_wait += time.perf_counter() - t_wait
+            if batch is None:
+                break
             if timer is not None:
                 timer.start_step(i)
             metrics = step_fn(self.state, batch, gen)
@@ -281,6 +291,7 @@ class Trainer:
                 "batch_size after task filtering?")
         metrics = {k: v / n for k, v in _sum_ranks(agg).items()}
         metrics["epoch_time_s"] = time.time() - t0
+        metrics["loader_wait_s"] = loader_wait
         metrics["n_batches"] = n
         if timer is not None:
             metrics.update({f"step_{k}": v

@@ -19,6 +19,14 @@ every ``*.json`` under it.
   profiler with a schedule, or ``StepTimer``'s ``train_step#n``. Its
   device time is the busy time of the device events launched inside it,
   from any host thread (the backward runs on autograd's own thread).
+* A stage span is a host range of ``utils/logging.span`` named
+  ``<part>.<stage>`` (torch's own ranges, such as
+  ``Optimizer.step#Adam.step``, and the step ranges hold a ``#``). A
+  device event belongs to the innermost stage span (the shortest) that
+  holds its launch on the host clock, from any thread; a stage's device
+  time is the busy time of the events that belong to it. Each gap
+  between the first device's events is put down to the stage of the
+  event that ends it: the device waited for that launch.
 
 Busy time is the length of the union of the events' intervals, so work
 that overlaps on two streams counts once. A trace without device events
@@ -34,11 +42,12 @@ import glob
 import json
 import os
 import re
-from typing import Dict, Iterable, List, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 STEP_RANGE = re.compile(r"^(.*)#(\d+)$")
+STAGE_SPAN = re.compile(r"^\w+\.\w+$")
 HOST_RANGE_CATS = ("user_annotation", "cpu_op")
 
 
@@ -181,9 +190,80 @@ def main_module_times(path: str) -> List[float]:
     return max(steps.values(), key=sum) if steps else []
 
 
+def _stage_spans(events: List[Dict]) -> List[Tuple[float, float, str]]:
+    """(start, end, name) of every stage span, by start."""
+    return sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                   str(e["name"])) for e in events
+                  if e.get("cat") == "user_annotation"
+                  and STAGE_SPAN.match(str(e.get("name", ""))))
+
+
+def _innermost(spans: List[Tuple[float, float, str]]
+               ) -> Callable[[float], Optional[str]]:
+    """host time -> the name of the shortest span holding it (start
+    included, end not), or None."""
+    cuts = sorted({t for lo, hi, _ in spans for t in (lo, hi)})
+    names: List[Optional[str]] = []
+    for a in cuts:
+        held = [(hi - lo, name) for lo, hi, name in spans if lo <= a < hi]
+        names.append(min(held)[1] if held else None)
+
+    def at(t: float) -> Optional[str]:
+        i = bisect.bisect_right(cuts, t) - 1
+        return names[i] if i >= 0 else None
+    return at
+
+
+def _gaps(events: List[Dict]) -> List[Tuple[float, Dict]]:
+    """(length, the event that ends it) of every gap between the first
+    device's events."""
+    devs = sorted({_device_of(e) for e in events}, key=lambda d: (len(d), d))
+    first = sorted((e for e in events if _device_of(e) == devs[0]),
+                   key=lambda e: (float(e["ts"]), float(e["dur"])))
+    out, hi = [], None
+    for e in first:
+        lo = float(e["ts"])
+        if hi is not None and lo > hi:
+            out.append((lo - hi, e))
+        hi = lo + float(e["dur"]) if hi is None else max(
+            hi, lo + float(e["dur"]))
+    return out
+
+
+def span_times(path: str) -> Dict[str, Dict[str, float]]:
+    """For each stage span name, over every file: {"count": its ranges,
+    "busy_s": the device time of the events that belong to it, "idle_s":
+    the gaps put down to it, and "busy_s_each", "idle_s_each": those over
+    the count}."""
+    acc: Dict[str, List[float]] = {}
+    for path_i in trace_files(path):
+        events = load_events(path_i)
+        spans = _stage_spans(events)
+        for _, _, name in spans:
+            acc.setdefault(name, [0, 0.0, 0.0])[0] += 1
+        at = _innermost(spans)
+        owner: Dict[int, str] = {}
+        mine: Dict[str, List[Dict]] = {}
+        for t, e in _launch_times(events):
+            name = at(t)
+            if name is not None:
+                owner[id(e)] = name
+                mine.setdefault(name, []).append(e)
+        for name, evs in mine.items():
+            acc[name][1] += union_us(_intervals(evs)) / 1e6
+        device = _device_events(events)
+        for gap, e in (_gaps(device) if device else []):
+            if id(e) in owner:
+                acc[owner[id(e)]][2] += gap / 1e6
+    return {name: {"count": int(n), "busy_s": busy, "idle_s": idle,
+                   "busy_s_each": busy / n, "idle_s_each": idle / n}
+            for name, (n, busy, idle) in sorted(acc.items())}
+
+
 if __name__ == "__main__":
     import sys
     rep = device_time_report(sys.argv[1])
     rep["module_steps"] = module_step_times(sys.argv[1])
+    rep["spans"] = span_times(sys.argv[1])
     rep["ops"] = op_breakdown(sys.argv[1], top=15)
     print(json.dumps(rep, indent=2))

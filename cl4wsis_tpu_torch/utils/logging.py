@@ -9,10 +9,16 @@ and figures are PNG files under the log directory. Only the logger of rank
 
 `StepTimer` times steps on the host clock after a device synchronise and
 traces a range of steps with ``torch.profiler`` into a Chrome trace.
+
+`span` names a stage of the program on the profiler's clock: under a
+running ``torch.profiler`` it is a ``record_function`` range, which
+``utils/device_time.span_times`` reads; with none running it is one
+shared null context and costs a flag read.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -20,6 +26,19 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A host range `name` while a profiler runs; otherwise a shared null
+    context, which creates no RecordFunction, allocates nothing and touches
+    no device. A stage is named ``<part>.<stage>``; a name ending in
+    ``#<n>`` is a step range (`StepTimer`'s)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 class Logger:
@@ -133,8 +152,8 @@ class StepTimer:
     ``torch.profiler`` trace of steps 2-4 (`TRACE_STEPS`) written to
     `trace_dir` as a Chrome trace (the trace stops at the range's end or at
     :meth:`close`, whichever comes first). Each traced step is the host
-    range ``train_step#<step>``, by which ``utils/device_time`` finds the
-    device time of each step."""
+    range ``train_step#<step>`` (opened through :func:`span`), by which
+    ``utils/device_time`` finds the device time of each step."""
 
     TRACE_STEPS = range(2, 5)
 
@@ -158,7 +177,7 @@ class StepTimer:
             self._prof.__enter__()
             self._first = step
         if self._prof is not None:
-            self._range = torch.profiler.record_function(f"train_step#{step}")
+            self._range = span(f"train_step#{step}")
             self._range.__enter__()
         self._t0 = time.perf_counter()
 

@@ -9,12 +9,14 @@ import argparse
 import dataclasses
 import os
 import shutil
+import time
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from cl4wsis_tpu.cl import ckpt as jckpt
 from cl4wsis_tpu.cl import tasks as jtasks
@@ -405,6 +407,25 @@ def test_interval_logging_means():
     assert log.commits == 2
     m = t.train_epoch(1, batches, logger=log)
     assert np.isclose(m["loss"], np.mean(losses))
+
+
+def test_loader_wait_is_the_hosts_wait_for_batches():
+    """A loader that takes 50 ms a batch: the epoch's loader_wait_s holds
+    every wait and lies inside the epoch's time; under a profiler each
+    wait is a ``trainer.next_batch`` span, one more than the batches (the
+    wait that finds the loader done)."""
+    t, batches, losses, _ = _fake_trainer(n_batches=3)
+
+    def slow():
+        for b in batches:
+            time.sleep(0.05)
+            yield b
+    m = t.train_epoch(0, slow())
+    assert m["n_batches"] == 3
+    assert 3 * 0.05 <= m["loader_wait_s"] <= m["epoch_time_s"]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t.train_epoch(0, slow())
+    assert [e.name for e in prof.events()].count("trainer.next_batch") == 4
 
 
 def test_empty_epoch_raises():
